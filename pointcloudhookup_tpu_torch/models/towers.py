@@ -1,0 +1,93 @@
+"""Tower schema, acceptance filters and duplicate suppression.
+
+Counterpart of ``pointcloudhookup_tpu/models/towers.py`` (``Tower``,
+``filter_and_dedup``, ``towers_from_stats``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pointcloudhookup_tpu.config import TowerFilterParams
+
+
+@dataclasses.dataclass
+class Tower:
+    """One extracted tower (host-side record, world coordinates)."""
+
+    id: str
+    center: np.ndarray  # f64[3] world coords (box center)
+    extent: np.ndarray  # f64[3] (ex >= ey horizontal, ez vertical)
+    height: float
+    width: float
+    north_angle: float
+    angle: float  # long-axis yaw in radians
+    num_points: int
+    label: int
+    properties: Optional[dict] = None
+
+
+def filter_and_dedup(stats: dict, fp: TowerFilterParams = TowerFilterParams()):
+    """Tower acceptance filters + greedy duplicate suppression.
+
+    Accept if height > min_height, min_width < width < max_width and
+    height/width > aspect_ratio_threshold; then, in cluster-id order,
+    reject any candidate whose 3D center lies within duplicate_threshold
+    of an EARLIER accepted one.  The greedy scan is the fixpoint of
+    accepted[i] = ok[i] & no earlier accepted conflict, iterated from
+    accepted = ok (at most K rounds).  Returns accepted bool[K]."""
+    ext = stats["extent"]
+    height = ext[:, 2]
+    width = ext[:, 0]  # ex >= ey by construction
+    aspect = height / torch.clamp(width, min=1e-6)
+    ok = (
+        stats["alive"]
+        & (height > fp.min_height)
+        & (width > fp.min_width)
+        & (width < fp.max_width)
+        & (aspect > fp.aspect_ratio_threshold)
+    )
+    centers = stats["center"]
+    k = centers.shape[0]
+    thr2 = torch.tensor(fp.duplicate_threshold, dtype=torch.float32).square()
+    d2 = (centers[:, None, :] - centers[None, :, :]).square().sum(dim=-1)
+    idx = torch.arange(k, device=centers.device)
+    earlier_conflict = (
+        (d2 < thr2.to(centers.device)) & (idx[None, :] < idx[:, None]) & ok[None, :]
+    )
+    accepted = ok
+    for _ in range(k):
+        new = ok & ~(earlier_conflict & accepted[None, :]).any(dim=1)
+        if torch.equal(new, accepted):
+            break
+        accepted = new
+    return accepted
+
+
+def towers_from_stats(stats: dict, origin: np.ndarray) -> list[Tower]:
+    """Host side: stats (numpy) + accepted mask -> Tower records in world
+    coordinates."""
+    keys = ("accepted", "center", "extent", "north_angle", "angle", "count")
+    stats = {k: np.asarray(stats[k]) for k in keys if k in stats}
+    out = []
+    for k in np.nonzero(stats["accepted"])[0]:
+        center = np.asarray(stats["center"][k], np.float64) + origin
+        ext = np.asarray(stats["extent"][k], np.float64)
+        out.append(
+            Tower(
+                id=f"tower_{int(k)}",
+                center=center,
+                extent=ext,
+                height=float(ext[2]),
+                width=float(ext[0]),
+                north_angle=float(stats["north_angle"][k]),
+                angle=float(stats["angle"][k]),
+                num_points=int(stats["count"][k]),
+                label=int(k),
+            )
+        )
+    return out

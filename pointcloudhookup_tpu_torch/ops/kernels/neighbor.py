@@ -1,0 +1,113 @@
+"""Fused eps-neighborhood population + min-label reduction.
+
+Counterpart of ``pointcloudhookup_tpu/ops/pallas/neighbor.py::
+neighbor_reduce``.  The CUDA kernel is ``csrc/neighbor.cu``.  The plain
+PyTorch version ``eps_ball_reduce_plain`` is shared with
+``cluster_converge.py``: rows in chunks (a dense [65536, 65536] d2 would
+take 17 GB) against the allowed columns only, which leaves pop and lmin
+unchanged.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pointcloudhookup_tpu_torch.ops.kernels import build
+
+launches = 0  # kernel launches in this process (read and reset by chip_smoke.py)
+
+_MODES = {"both": 0, "pop": 1, "lmin": 2}
+_CHUNK_ELEMS = 1 << 24  # d2 elements per row chunk of the plain version
+
+
+def neighbor_reduce(xyz, labels, weights, allowed, eps2, *, sentinel=None,
+                    mode: str = "both"):
+    """pop[i] = sum_j [d2(i,j) <= eps2 & allowed_j] * w_j and
+    lmin[i] = min label_j over the same set (``sentinel`` if empty).
+
+    xyz float32[M,3], labels int32[M], weights float32[M], allowed bool[M];
+    d2 from coordinate differences.  mode "pop" / "lmin" skips the other
+    reduction, whose output then holds its identity (zeros / sentinel).
+    Returns (pop float32[M], lmin int32[M])."""
+    if mode not in _MODES:
+        raise ValueError(f"bad mode {mode!r}")
+    m = xyz.shape[0]
+    if sentinel is None:
+        sentinel = m
+    if xyz.device.type == "cpu":
+        return neighbor_reduce_plain(
+            xyz, labels, weights, allowed, eps2, sentinel=sentinel, mode=mode
+        )
+    global launches
+    build.require_cuda("neighbor_reduce", xyz, labels, weights, allowed)
+    if xyz.dtype != torch.float32 or xyz.shape != (m, 3):
+        raise ValueError("xyz must be float32[M, 3]")
+    if labels.dtype != torch.int32 or labels.shape != (m,):
+        raise ValueError("labels must be int32[M]")
+    if weights.dtype != torch.float32 or weights.shape != (m,):
+        raise ValueError("weights must be float32[M]")
+    if allowed.dtype != torch.bool or allowed.shape != (m,):
+        raise ValueError("allowed must be bool[M]")
+    lib = build.library()
+    pop = torch.empty(m, dtype=torch.float32, device=xyz.device)
+    lmin = torch.empty(m, dtype=torch.int32, device=xyz.device)
+    rc = lib.pch_neighbor_reduce(
+        xyz.data_ptr(), labels.data_ptr(), weights.data_ptr(),
+        allowed.data_ptr(), m, float(eps2), int(sentinel), _MODES[mode],
+        pop.data_ptr(), lmin.data_ptr(), build.stream(xyz.device),
+    )
+    build.check(rc, "neighbor_reduce")
+    launches += 1
+    return pop, lmin
+
+
+def neighbor_reduce_plain(xyz, labels, weights, allowed, eps2, *,
+                          sentinel=None, mode: str = "both"):
+    """Plain PyTorch version: same contract."""
+    m = xyz.shape[0]
+    if sentinel is None:
+        sentinel = m
+    pop, lmin = eps_ball_reduce_plain(
+        xyz, allowed, eps2,
+        weights=weights if mode in ("both", "pop") else None,
+        labels=labels if mode in ("both", "lmin") else None,
+        sentinel=sentinel,
+    )
+    if pop is None:
+        pop = torch.zeros(m, dtype=torch.float32, device=xyz.device)
+    if lmin is None:
+        lmin = torch.full((m,), sentinel, dtype=torch.int32, device=xyz.device)
+    return pop, lmin
+
+
+def eps_ball_reduce_plain(xyz, allowed, eps2, *, weights=None, labels=None,
+                          sentinel: int = 0):
+    """Pairwise eps-ball pass over the allowed columns, rows in chunks:
+    (sum of weights or None, min of labels / sentinel or None)."""
+    m = xyz.shape[0]
+    dev = xyz.device
+    eps2 = torch.tensor(float(eps2), dtype=torch.float32, device=dev)
+    cols = torch.nonzero(allowed).squeeze(1)
+    cx, cy, cz = (xyz[cols, a] for a in range(3))
+    cw = weights[cols] if weights is not None else None
+    cl = labels[cols] if labels is not None else None
+    pop = torch.zeros(m, dtype=torch.float32, device=dev) if cw is not None else None
+    lmin = (
+        torch.full((m,), sentinel, dtype=torch.int32, device=dev)
+        if cl is not None else None
+    )
+    if cols.numel() == 0 or m == 0:
+        return pop, lmin
+    rows = max(1, _CHUNK_ELEMS // cols.numel())
+    for r0 in range(0, m, rows):
+        r = xyz[r0 : r0 + rows]
+        dx = r[:, 0:1] - cx[None, :]
+        dy = r[:, 1:2] - cy[None, :]
+        dz = r[:, 2:3] - cz[None, :]
+        nb = dx * dx + dy * dy + dz * dz <= eps2
+        if pop is not None:
+            pop[r0 : r0 + rows] = torch.where(nb, cw[None, :], 0.0).sum(dim=1)
+        if lmin is not None:
+            sent = torch.tensor(sentinel, dtype=torch.int32, device=dev)
+            lmin[r0 : r0 + rows] = torch.where(nb, cl[None, :], sent).amin(dim=1)
+    return pop, lmin

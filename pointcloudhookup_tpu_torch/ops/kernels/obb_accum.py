@@ -1,0 +1,106 @@
+"""Sort-free per-cluster OBB accumulators over raw coordinates.
+
+Counterpart of ``pointcloudhookup_tpu/ops/pallas/obb_accum.py::
+obb_accumulate_xyz``.  The CUDA kernel is ``csrc/obb_accum.cu``.  The plain
+PyTorch version reduces with ``scatter_reduce`` over the labelled rows in
+chunks (the JAX oracle's [N, K, A] one-hot would not fit at the path's
+shapes).  Both take the angle table from ``angle_table`` so they project
+with identical cos/sin values.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from pointcloudhookup_tpu_torch.ops.kernels import build
+
+launches = 0  # kernel launches in this process (read and reset by chip_smoke.py)
+
+_BIG = 3.0e38
+_CHUNK_ROWS = 1 << 16
+NAMES = ("cnt", "sx", "sy", "sz", "zlo", "zhi", "ulo", "uhi", "vlo", "vhi")
+
+
+def angle_table(num_angles: int, device):
+    """(cos, sin) float32[A] of angle_j = j * (pi/2) / A, computed in f32
+    like the JAX kernel's table."""
+    step = torch.tensor(math.pi / 2.0 / num_angles, dtype=torch.float32)
+    ang = torch.arange(num_angles, dtype=torch.float32) * step
+    return ang.cos().to(device), ang.sin().to(device)
+
+
+def obb_accumulate_xyz(x, y, z, labels, *, max_clusters: int = 128,
+                       num_angles: int = 256):
+    """x/y/z float32[N]; labels int32[N], id in [0, K) or anything else to
+    skip.  Returns dict(cnt, sx, sy, sz, zlo, zhi [K]; ulo, uhi, vlo, vhi
+    [K, A]) of the rotated-frame projection extremes; column 0 is the
+    axis-aligned frame."""
+    if x.device.type == "cpu":
+        return obb_accumulate_xyz_plain(
+            x, y, z, labels, max_clusters=max_clusters, num_angles=num_angles
+        )
+    global launches
+    build.require_cuda("obb_accumulate_xyz", x, y, z, labels)
+    n = x.shape[0]
+    for t in (x, y, z):
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise ValueError(f"x, y, z must be float32[{n}]")
+    if labels.dtype != torch.int32 or labels.shape != (n,):
+        raise ValueError(f"labels must be int32[{n}]")
+    k, a = max_clusters, num_angles
+    lib = build.library()
+    cos_a, sin_a = angle_table(a, x.device)
+    out = torch.empty(6 * k + 4 * k * a, dtype=torch.float32, device=x.device)
+    rc = lib.pch_obb_accumulate_xyz(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), labels.data_ptr(), n,
+        cos_a.data_ptr(), sin_a.data_ptr(), k, a, out.data_ptr(),
+        build.stream(x.device),
+    )
+    build.check(rc, "obb_accumulate_xyz")
+    launches += 1
+    per_cluster = out[: 6 * k].view(6, k)
+    per_angle = out[6 * k :].view(4, k, a)
+    return dict(zip(NAMES, (*per_cluster.unbind(0), *per_angle.unbind(0))))
+
+
+def obb_accumulate_xyz_plain(x, y, z, labels, *, max_clusters: int = 128,
+                             num_angles: int = 256):
+    """Plain PyTorch version: same contract."""
+    k, a = max_clusters, num_angles
+    dev = x.device
+    sel = torch.nonzero((labels >= 0) & (labels < k)).squeeze(1)
+    lab = labels[sel].long()
+    xs, ys, zs = x[sel], y[sel], z[sel]
+    f32 = torch.float32
+
+    def fill(shape, v):
+        return torch.full(shape, v, dtype=f32, device=dev)
+
+    out = dict(
+        cnt=torch.bincount(lab, minlength=k).to(f32),
+        sx=fill((k,), 0.0).index_add_(0, lab, xs),
+        sy=fill((k,), 0.0).index_add_(0, lab, ys),
+        sz=fill((k,), 0.0).index_add_(0, lab, zs),
+        zlo=fill((k,), _BIG).scatter_reduce_(0, lab, zs, "amin"),
+        zhi=fill((k,), -_BIG).scatter_reduce_(0, lab, zs, "amax"),
+    )
+    cos_a, sin_a = angle_table(a, dev)
+    ext = {
+        "ulo": fill((k * a,), _BIG), "uhi": fill((k * a,), -_BIG),
+        "vlo": fill((k * a,), _BIG), "vhi": fill((k * a,), -_BIG),
+    }
+    cols = torch.arange(a, device=dev)
+    for r0 in range(0, sel.shape[0], _CHUNK_ROWS):
+        px = xs[r0 : r0 + _CHUNK_ROWS, None]
+        py = ys[r0 : r0 + _CHUNK_ROWS, None]
+        u = (px * cos_a[None, :] + py * sin_a[None, :]).reshape(-1)
+        v = (py * cos_a[None, :] - px * sin_a[None, :]).reshape(-1)
+        idx = (lab[r0 : r0 + _CHUNK_ROWS, None] * a + cols[None, :]).reshape(-1)
+        ext["ulo"].scatter_reduce_(0, idx, u, "amin")
+        ext["uhi"].scatter_reduce_(0, idx, u, "amax")
+        ext["vlo"].scatter_reduce_(0, idx, v, "amin")
+        ext["vhi"].scatter_reduce_(0, idx, v, "amax")
+    out.update({key: val.view(k, a) for key, val in ext.items()})
+    return out

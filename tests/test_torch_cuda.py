@@ -1,0 +1,231 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on
+the same inputs, on the card.  Every test is marked ``cuda`` and skips
+where ``torch.cuda.is_available()`` is false.  This file imports no jax,
+so it also runs on a GPU machine without it (tests/conftest.py does
+import jax; skip it there):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Integer outputs, pop and the OBB counts and extremes must be identical
+(one angle table, the same per-row rounding); OBB sums agree to f32
+summation order (atomics add in run order)."""
+
+import numpy as np
+import pytest
+import torch
+
+from pointcloudhookup_tpu_torch.ops.kernels import (
+    cluster_converge,
+    compactrows,
+    neighbor,
+    obb_accum,
+    segscan,
+)
+
+# ------------------------------------------------------------------
+# Seeded numpy inputs and comparisons, shared with test_torch_kernels.py
+# (which holds the plain versions against the JAX oracles).
+
+BIG = np.float32(3.0e38)
+
+
+def t(a, device="cpu"):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def n(x):
+    return x.detach().cpu().numpy()
+
+
+def compact_inputs(seed, size, density):
+    rng = np.random.default_rng(seed)
+    keep = rng.random(size) < density
+    chans = [
+        rng.integers(-2**31, 2**31 - 1, size, dtype=np.int64).astype(np.int32)
+        for _ in range(3)
+    ]
+    return keep, chans
+
+
+def scan_inputs(seed, size, dtype):
+    rng = np.random.default_rng(seed)
+    flags = rng.random(size) < 0.05
+    if dtype == np.int32:
+        vals = rng.integers(-1000, 1000, size).astype(np.int32)
+    else:
+        vals = rng.normal(0, 10, size).astype(np.float32)
+    return vals, flags
+
+
+def cells(seed, m, n_alive, dead_allowed=False):
+    """Cell centers on an eps/2 = 2.5 lattice (exact f32 distances), dead
+    rows at +3e38 like the dense-cell table's capacity."""
+    rng = np.random.default_rng(seed)
+    ij = rng.integers(0, 12, size=(m, 3)).astype(np.float32)
+    centers = ((ij + np.float32(0.5)) * np.float32(2.5)).astype(np.float32)
+    alive = np.arange(m) < n_alive
+    centers[~alive] = BIG
+    ccount = np.where(alive, rng.integers(1, 20, m), 0).astype(np.float32)
+    if dead_allowed:
+        alive = alive.copy()
+        alive[-3:] = True  # allowed rows AT the sentinel coordinate
+    return centers, ccount, alive
+
+
+def obb_inputs(seed, size, k):
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-50, 50, size=(size, 3)).astype(np.float32)
+    # runs of constant labels (cell-sorted rows), with noise, ids >= K
+    # and negative ids mixed in
+    lab = np.repeat(rng.integers(-1, k + 4, size // 16 + 1), 16)[:size]
+    return xyz, lab.astype(np.int32)
+
+
+def assert_acc_close(got, ref, xyz, lab, k, extremes_atol):
+    """Counts and z extremes exactly; sums to 1e-6 of each cluster's
+    summed magnitude (f32 summation order); u/v extremes to
+    extremes_atol."""
+    sel = (lab >= 0) & (lab < k)
+    for key in obb_accum.NAMES:
+        g, r = np.asarray(got[key]), np.asarray(ref[key])
+        assert g.shape == r.shape, key
+        if key in ("sx", "sy", "sz"):
+            col = "xyz".index(key[1])
+            mag = np.bincount(lab[sel], weights=np.abs(xyz[sel, col]), minlength=k)
+            assert (np.abs(g.astype(np.float64) - r) <= 1e-6 * mag + 1e-6).all(), key
+        elif key in ("cnt", "zlo", "zhi"):
+            np.testing.assert_array_equal(g, r, err_msg=key)
+        else:
+            np.testing.assert_allclose(g, r, rtol=0, atol=extremes_atol, err_msg=key)
+
+
+# ------------------------------------------------------------------
+# Kernel vs plain version, on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "size,density,cap",
+    [(1 << 20, 0.15, 1 << 18), (100_003, 0.9, 50_000), (7, 1.0, 9), (5000, 0.0, 64)],
+    ids=["fits", "count>cap", "tiny", "none-kept"],
+)
+def test_compactrows_kernel_matches_plain(cuda, size, density, cap):
+    keep, chans = compact_inputs(2, size, density)
+    args = (t(keep, cuda), tuple(t(c, cuda) for c in chans), cap)
+    got, cnt = compactrows.compact_rows_multi(*args)
+    ref, ref_cnt = compactrows.compact_rows_multi_plain(*args)
+    torch.cuda.synchronize()
+    assert int(cnt) == int(ref_cnt)
+    for r, g in zip(ref, got):
+        assert torch.equal(r, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1, 4095, 4097, 1 << 20])
+def test_segscan_kernel_matches_plain(cuda, size):
+    for dtype in (np.int32, np.float32):
+        vals, flags = scan_inputs(4, size, dtype)
+        if dtype == np.float32:
+            vals = np.round(vals)  # integer-valued: sums exact in any order
+        for op in ("add", "max", "min"):
+            for reverse in (False, True):
+                args = (t(vals, cuda), t(flags, cuda), op, reverse)
+                got = segscan.segmented_scan(*args)
+                ref = segscan.segmented_scan_plain(*args)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref), (dtype, op, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["both", "pop", "lmin"])
+def test_neighbor_kernel_matches_plain(cuda, mode):
+    m = 16384
+    centers, ccount, alive = cells(7, m, 9000, dead_allowed=True)
+    labels = np.random.default_rng(8).permutation(m).astype(np.int32)
+    args = (t(centers, cuda), t(labels, cuda), t(ccount, cuda), t(alive, cuda), 25.0)
+    got = neighbor.neighbor_reduce(*args, sentinel=m, mode=mode)
+    ref = neighbor.neighbor_reduce_plain(*args, sentinel=m, mode=mode)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_points", [0.0, 40.0, 1e9], ids=["flood-all", "core-rule", "all-noise"])
+def test_cluster_cells_kernel_matches_plain(cuda, min_points):
+    m = 8192
+    centers, ccount, alive = cells(11, m, 6000)
+    labels0 = np.random.default_rng(12).permutation(m).astype(np.int32)
+    args = (t(centers, cuda), t(ccount, cuda), t(alive, cuda), t(labels0, cuda),
+            25.0, min_points)
+    got = cluster_converge.cluster_cells(*args)
+    ref = cluster_converge.cluster_cells_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_obb_accum_kernel_matches_plain(cuda):
+    k, a = 128, 256
+    xyz, lab = obb_inputs(13, 300_001, k)
+    args = tuple(t(v, cuda) for v in (xyz[:, 0], xyz[:, 1], xyz[:, 2], lab))
+    got = obb_accum.obb_accumulate_xyz(*args, max_clusters=k, num_angles=a)
+    ref = obb_accum.obb_accumulate_xyz_plain(*args, max_clusters=k, num_angles=a)
+    torch.cuda.synchronize()
+    assert_acc_close({key: n(v) for key, v in got.items()},
+                     {key: n(v) for key, v in ref.items()}, xyz, lab, k, 0.0)
+
+
+@pytest.mark.cuda
+def test_exact_extract_graph_cuda_matches_cpu(cuda):
+    """Every stage of the exact path on the card equals the CPU run (the
+    plain versions, which the CPU suite holds against the JAX package):
+    a small corridor tile, stage by stage through _cut and whole."""
+    from pointcloudhookup_tpu.config import ClusterParams, ExtractParams, GroundParams
+    from pointcloudhookup_tpu.io.synthetic import synthetic_corridor
+    from pointcloudhookup_tpu_torch.ops import frontend_exact
+
+    pts, _ = synthetic_corridor(
+        np.random.default_rng(3), n_ground=20_000, n_veg=4_000,
+        towers=((0.0, 0.0), (160.0, 60.0), (-170.0, -80.0)),
+        pts_per_tower=1_500, extent=300.0,
+    )
+    cap = 32768
+    xyz = np.zeros((cap, 3), np.float32)
+    xyz[: len(pts)] = (pts - pts.mean(axis=0)).astype(np.float32)
+    mask = np.arange(cap) < len(pts)
+    params = ExtractParams(
+        ground=GroundParams(min_points_after=100),
+        cluster=ClusterParams(eps=5.0, min_points=30, method="grid", max_cells=4096),
+        max_clusters=32, obb_angles=64,
+    )
+    kw = dict(
+        cell_bits=frontend_exact.exact_cell_plan(np.ptp(pts, axis=0), 5.0),
+        compact_cap=cap, max_cells=4096, core_cap=2048,
+    )
+    for cut in (1, 2, 4, 41, 42, 5, 6, 0):
+        got = frontend_exact.exact_extract_graph(t(xyz, cuda), t(mask, cuda), params,
+                                                 _cut=cut, **kw)
+        ref = frontend_exact.exact_extract_graph(t(xyz), t(mask), params, _cut=cut, **kw)
+        for key, r in ref.items():
+            g = got[key].cpu()
+            if cut == 0 and key in ("centroid", "center", "extent", "angle", "north_angle"):
+                # f32 sums in another order (atomics); see test_torch_frontend_exact
+                np.testing.assert_allclose(n(g), n(r), atol=1.0, err_msg=key)
+            else:
+                assert torch.equal(g, r), (cut, key)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_cpu_mix(cuda):
+    keep = torch.ones(8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        compactrows.compact_rows_multi(keep, (torch.zeros(8, dtype=torch.int32),), 8)

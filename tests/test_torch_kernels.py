@@ -1,0 +1,135 @@
+"""The port's five kernels: their plain PyTorch versions (what CPU tensors
+run) against the JAX package's XLA oracles on the same numpy inputs.  The
+hand-written CUDA kernels are held against these plain versions on the
+card by test_torch_cuda.py.
+
+Tolerances: integer outputs, pop (integer weights), counts and min/max
+extremes must match exactly; float sums only up to f32 summation order
+(1e-6 of each cluster's summed magnitude)."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from pointcloudhookup_tpu.ops.pallas.cluster_converge import cluster_cells_reference
+from pointcloudhookup_tpu.ops.pallas.compactrows import compact_rows_multi_reference
+from pointcloudhookup_tpu.ops.pallas.neighbor import neighbor_reduce_reference
+from pointcloudhookup_tpu.ops.pallas.obb_accum import obb_accumulate_xyz_reference
+from pointcloudhookup_tpu.ops.segments import segmented_scan as jax_segmented_scan
+from pointcloudhookup_tpu_torch.ops.kernels import (
+    cluster_converge,
+    compactrows,
+    neighbor,
+    obb_accum,
+    segscan,
+)
+from test_torch_cuda import (
+    BIG,
+    assert_acc_close,
+    cells,
+    compact_inputs,
+    n,
+    obb_inputs,
+    scan_inputs,
+    t,
+)
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize(
+    "size,density,cap",
+    [(5000, 0.3, 2048), (5000, 0.8, 2048), (4096, 0.0, 1024), (3000, 0.5, 4096)],
+    ids=["fits", "count>cap", "none-kept", "cap>n"],
+)
+def test_compactrows_plain_matches_reference(size, density, cap):
+    keep, chans = compact_inputs(1, size, density)
+    ref, ref_cnt = compact_rows_multi_reference(
+        jnp.asarray(keep), tuple(jnp.asarray(c) for c in chans), cap
+    )
+    got, cnt = compactrows.compact_rows_multi(t(keep), tuple(t(c) for c in chans), cap)
+    assert int(cnt) == int(ref_cnt) == int(keep.sum())
+    for r, g in zip(ref, got):
+        assert g.dtype == torch.int32 and g.shape == (cap,)
+        np.testing.assert_array_equal(n(g), np.asarray(r))
+
+
+_JNP_OPS = {"add": jnp.add, "max": jnp.maximum, "min": jnp.minimum}
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["i32", "f32"])
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+def test_segscan_plain_matches_reference(op, dtype, reverse):
+    # the plain version is the reference's own doubling scan, so even
+    # float sums agree bit for bit
+    vals, flags = scan_inputs(3, 3001, dtype)
+    ref = jax_segmented_scan(
+        _JNP_OPS[op], jnp.asarray(vals), jnp.asarray(flags), reverse=reverse
+    )
+    got = segscan.segmented_scan(t(vals), t(flags), op, reverse)
+    np.testing.assert_array_equal(n(got), np.asarray(ref))
+
+
+@pytest.mark.parametrize("mode", ["both", "pop", "lmin"])
+def test_neighbor_plain_matches_reference(mode):
+    m = 2048
+    centers, ccount, alive = cells(5, m, 1500, dead_allowed=True)
+    labels = np.random.default_rng(6).permutation(m).astype(np.int32)
+    eps2 = np.float32(25.0)
+    ref_pop, ref_lmin = neighbor_reduce_reference(
+        jnp.asarray(centers), jnp.asarray(labels), jnp.asarray(ccount),
+        jnp.asarray(alive), eps2, sentinel=m,
+    )
+    pop, lmin = neighbor.neighbor_reduce(
+        t(centers), t(labels), t(ccount), t(alive), eps2, sentinel=m, mode=mode,
+    )
+    want_pop = np.asarray(ref_pop) if mode != "lmin" else np.zeros(m, np.float32)
+    want_lmin = np.asarray(ref_lmin) if mode != "pop" else np.full(m, m, np.int32)
+    np.testing.assert_array_equal(n(pop), want_pop)
+    np.testing.assert_array_equal(n(lmin), want_lmin)
+
+
+@pytest.mark.parametrize(
+    "min_points,n_alive",
+    [(0.0, 700), (30.0, 700), (1e9, 700), (12.0, 1024)],
+    ids=["flood-all", "core-rule", "all-noise", "full-table"],
+)
+def test_cluster_cells_plain_matches_reference(min_points, n_alive):
+    m = 1024
+    centers, ccount, alive = cells(9, m, n_alive)
+    labels0 = np.random.default_rng(10).permutation(m).astype(np.int32)
+    eps2 = np.float32(25.0)
+    ref_lab, ref_pop = cluster_cells_reference(
+        jnp.asarray(centers), jnp.asarray(ccount), jnp.asarray(alive),
+        jnp.asarray(labels0), eps2, min_points,
+    )
+    lab, pop = cluster_converge.cluster_cells(
+        t(centers), t(ccount), t(alive), t(labels0), eps2, min_points
+    )
+    np.testing.assert_array_equal(n(pop), np.asarray(ref_pop))
+    np.testing.assert_array_equal(n(lab), np.asarray(ref_lab))
+    if min_points > 1e8:
+        assert (n(lab) == m).all()
+
+
+@pytest.mark.parametrize("all_noise", [False, True], ids=["mixed", "all-noise"])
+def test_obb_accum_plain_matches_reference(all_noise):
+    k, a = 8, 16
+    xyz, lab = obb_inputs(12, 3000, k)
+    if all_noise:
+        lab[:] = -1
+    ref = obb_accumulate_xyz_reference(
+        jnp.asarray(xyz[:, 0]), jnp.asarray(xyz[:, 1]), jnp.asarray(xyz[:, 2]),
+        jnp.asarray(lab), max_clusters=k, num_angles=a,
+    )
+    got = obb_accum.obb_accumulate_xyz(
+        t(xyz[:, 0]), t(xyz[:, 1]), t(xyz[:, 2]), t(lab),
+        max_clusters=k, num_angles=a,
+    )
+    # the angle tables may differ by one ULP of cos/sin between XLA and
+    # torch: u/v extremes of |coords| <= 87 m to 2e-5 m
+    assert_acc_close({key: n(v) for key, v in got.items()}, ref, xyz, lab, k, 2e-5)
+    if all_noise:
+        assert (n(got["cnt"]) == 0).all() and (n(got["ulo"]) == BIG).all()

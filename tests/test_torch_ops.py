@@ -1,0 +1,229 @@
+"""The port's host-side and tensor helpers against their JAX counterparts
+on the same numpy inputs: Morton keys, the bisection percentile, label
+compaction, stable row compaction, the OBB finisher, the tower filters,
+the state converters, and the import boundary (the port never imports
+jax)."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from pointcloudhookup_tpu.config import TowerFilterParams
+from pointcloudhookup_tpu.models import towers as jtowers
+from pointcloudhookup_tpu.ops import cluster as jcluster
+from pointcloudhookup_tpu.ops import morton as jmorton
+from pointcloudhookup_tpu.ops import obb as jobb
+from pointcloudhookup_tpu.ops import percentile as jpct
+from pointcloudhookup_tpu.ops.pallas.obb_accum import obb_accumulate_xyz_reference
+from pointcloudhookup_tpu_torch import state
+from pointcloudhookup_tpu_torch.models import towers as ttowers
+from pointcloudhookup_tpu_torch.ops import cluster as tcluster
+from pointcloudhookup_tpu_torch.ops import morton as tmorton
+from pointcloudhookup_tpu_torch.ops import obb as tobb
+from pointcloudhookup_tpu_torch.ops import percentile as tpct
+
+torch.set_num_threads(2)
+
+
+def _n(t):
+    return t.detach().cpu().numpy()
+
+
+@pytest.mark.parametrize("bits", [(10, 10, 7), (8, 8, 5), (1, 12, 3), (11, 11, 10)])
+def test_interleave_tight_matches_jax(bits):
+    rng = np.random.default_rng(sum(bits))
+    ijk = [rng.integers(0, 1 << b, 5000).astype(np.int32) for b in bits]
+    ref = np.asarray(jmorton.interleave_tight(*map(jnp.asarray, ijk), bits))
+    got = tmorton.interleave_tight(*map(torch.from_numpy, ijk), bits)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(_n(got), ref.astype(np.int64))
+
+
+def _pct_cases():
+    rng = np.random.default_rng(11)
+    for trial in range(10):
+        n = int(rng.integers(2, 5000))
+        x = rng.normal(scale=100, size=n).astype(np.float32)
+        if trial % 3 == 0:
+            x = np.round(x / 10) * 10  # heavy duplicates
+        if trial % 4 == 1:
+            x[: n // 3] = np.where(rng.random(n // 3) < 0.5, -0.0, 0.0)
+        mask = rng.random(n) < 0.8
+        mask[0] = True
+        yield x.astype(np.float32), mask, float(rng.uniform(0, 100))
+    yield np.array([7.5, -2.0], np.float32), np.array([True, False]), 25.0
+
+
+def test_percentile_bisect_bit_identical():
+    """The two order statistics are exactly the sorted masked values at
+    floor(h) and floor(h)+1 (as np.sort orders them), and the lerp rounds
+    exactly as the JAX function's: results are bit-identical."""
+    for x, mask, q in _pct_cases():
+        xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+        got = tpct.masked_percentile_bisect(xt, mt, q)
+        ref = jpct.masked_percentile_bisect(jnp.asarray(x), jnp.asarray(mask), q)
+        assert got.dtype == torch.float32 and got.dim() == 0
+        assert np.float32(_n(got)).view(np.uint32) == np.asarray(ref).view(np.uint32), q
+
+        # order statistics against numpy's sort, bit for bit
+        u = tpct._f32_ordered_bits(xt)
+        np.testing.assert_array_equal(
+            _n(u).astype(np.uint32),
+            np.asarray(jpct._f32_ordered_bits(jnp.asarray(x))),
+        )
+        xs = np.sort(x[mask])
+        h = np.float32(len(xs) - 1) * (np.float32(q) / np.float32(100))
+        lo = int(np.floor(h))
+        hi = min(lo + 1, len(xs) - 1)
+        for rank, want in ((lo, xs[lo]), (hi, xs[hi])):
+            bits = tpct._order_statistic_bits(u, mt, torch.tensor(rank))
+            back = tpct._f32_from_ordered_bits(bits)
+            assert np.float32(_n(back)) == want
+        assert abs(float(got) - float(np.percentile(x[mask].astype(np.float64), q))) < 1e-2
+
+
+def test_compact_labels_matches_jax():
+    rng = np.random.default_rng(12)
+    m = 4096
+    raw = rng.choice(rng.integers(0, m, 50), m).astype(np.int32)
+    raw[rng.random(m) < 0.3] = m  # noise
+    ref = np.asarray(jcluster.compact_labels(jnp.asarray(raw), jnp.int32(m)))
+    got = tcluster.compact_labels(torch.from_numpy(raw), m)
+    np.testing.assert_array_equal(_n(got), ref)
+
+
+@pytest.mark.parametrize("cap", [64, 300, 1000], ids=["overflow", "fits", "cap>n"])
+def test_compact_valid_rows_matches_jax(cap):
+    rng = np.random.default_rng(13)
+    n = 700
+    valid = rng.random(n) < 0.2
+    pays = (np.arange(n, dtype=np.int32), rng.normal(size=n).astype(np.float32))
+    (rf, rr), rn, ro = jobb._compact_valid_rows(
+        jnp.asarray(valid), tuple(map(jnp.asarray, pays)), cap, fill=jnp.int32(n)
+    )
+    (gf, gr), gn, go = tobb._compact_valid_rows(
+        torch.from_numpy(valid), tuple(map(torch.from_numpy, pays)), cap, fill=n
+    )
+    np.testing.assert_array_equal(_n(gf), np.asarray(rf))
+    np.testing.assert_array_equal(_n(gr), np.asarray(rr))
+    assert int(gn) == int(rn) and float(go) == float(ro)
+
+
+def test_obb_from_accum_matches_jax():
+    """Fed the SAME accumulators (from the JAX oracle, through state.py),
+    the finisher agrees to one ULP of cos/sin: angles and north angles to
+    1e-4 rad/deg, geometry to 1e-4 m on clusters of ~100 m extent."""
+    rng = np.random.default_rng(14)
+    k, a = 16, 64
+    n = 6000
+    xyz = rng.uniform(-60, 60, size=(n, 3)).astype(np.float32)
+    lab = rng.integers(-1, k - 3, n).astype(np.int32)  # 3 dead clusters
+    acc = obb_accumulate_xyz_reference(
+        *(jnp.asarray(xyz[:, i]) for i in range(3)), jnp.asarray(lab),
+        max_clusters=k, num_angles=a,
+    )
+    ref = {key: np.asarray(v) for key, v in jobb._obb_from_accum(acc, k, a).items()}
+    acc_t = state.to_torch({key: np.asarray(v) for key, v in acc.items()})
+    got = state.to_numpy(tobb.obb_stats_from_accumulators(acc_t, k, a))
+    assert set(got) == set(ref)
+    for key in ref:
+        assert got[key].shape == ref[key].shape and got[key].dtype == ref[key].dtype
+        if ref[key].dtype == bool:
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+        else:
+            np.testing.assert_allclose(got[key], ref[key], rtol=1e-6, atol=1e-4,
+                                       err_msg=key)
+
+
+def _stats_for_filters():
+    rng = np.random.default_rng(15)
+    k = 32
+    center = rng.uniform(-100, 100, size=(k, 3)).astype(np.float32)
+    center[5] = center[2] + np.float32(10.0)  # duplicate of an earlier one
+    center[9] = center[5] + np.float32(5.0)  # chains through a rejected one
+    ext = np.stack(
+        [rng.uniform(5, 60, k), rng.uniform(1, 5, k), rng.uniform(5, 60, k)], 1
+    ).astype(np.float32)
+    alive = rng.random(k) < 0.9
+    return dict(extent=ext, center=center, alive=alive)
+
+
+@pytest.mark.parametrize(
+    "fp", [TowerFilterParams(), TowerFilterParams(duplicate_threshold=80.0)],
+    ids=["default", "wide-dedup"],
+)
+def test_filter_and_dedup_matches_jax(fp):
+    stats = _stats_for_filters()
+    ref = np.asarray(jtowers.filter_and_dedup(
+        {k: jnp.asarray(v) for k, v in stats.items()}, fp
+    ))
+    got = ttowers.filter_and_dedup(state.to_torch(stats), fp)
+    np.testing.assert_array_equal(_n(got), ref)
+    assert ref.sum() > 0
+
+
+def test_towers_from_stats_matches_jax():
+    stats = _stats_for_filters()
+    k = len(stats["alive"])
+    stats.update(
+        accepted=stats["alive"] & (np.arange(k) % 3 == 0),
+        north_angle=np.linspace(0, 359, k).astype(np.float32),
+        angle=np.linspace(0, 3, k).astype(np.float32),
+        count=np.arange(k, dtype=np.float32) * 7,
+    )
+    origin = np.array([5e5, 3e6, 40.0])
+    ref = jtowers.towers_from_stats(stats, origin)
+    got = ttowers.towers_from_stats(stats, origin)
+    assert len(got) == len(ref) > 0
+    for g, r in zip(got, ref):
+        assert (g.id, g.label, g.num_points) == (r.id, r.label, r.num_points)
+        np.testing.assert_array_equal(g.center, r.center)
+        np.testing.assert_array_equal(g.extent, r.extent)
+        assert (g.height, g.width, g.north_angle, g.angle) == (
+            r.height, r.width, r.north_angle, r.angle
+        )
+
+
+def test_state_roundtrip_dtypes():
+    tree = dict(
+        b=np.array([True, False]),
+        i=np.array([1, -2], np.int32),
+        f=np.float32(2.5),
+        u=np.array([0, 0xFFFFFFFF], np.uint32),
+        nested=(np.zeros(3, np.float32),),
+    )
+    t = state.to_torch(tree)
+    assert t["b"].dtype == torch.bool and t["i"].dtype == torch.int32
+    assert t["f"].dtype == torch.float32 and t["f"].dim() == 0
+    assert t["u"].dtype == torch.int64 and int(t["u"][1]) == 0xFFFFFFFF
+    back = state.to_numpy(t, u32=("u",))
+    for key in ("b", "i", "f", "u"):
+        assert back[key].dtype == np.asarray(tree[key]).dtype
+        np.testing.assert_array_equal(back[key], tree[key])
+    with pytest.raises(TypeError):
+        state.to_torch(np.zeros(2, np.float64))
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys\n"
+        "import pointcloudhookup_tpu_torch.__main__\n"
+        "import pointcloudhookup_tpu_torch.models.pipeline\n"
+        "import pointcloudhookup_tpu_torch.ops.frontend_exact\n"
+        "import pointcloudhookup_tpu_torch.state\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('jaxlib'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
