@@ -4,31 +4,47 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from pointcloudhookup_tpu_torch/csrc,
-writes the 4,194,304-point synthetic corridor tile of bench.py (seed 7, 80 %
-ground, 12 % vegetation, 24 towers, 2 km extent) as LAS, and
+It builds the hand-written CUDA kernels from pointcloudhookup_tpu_torch/csrc
+(one nvcc per source, in parallel), makes the 4,194,304-point synthetic
+corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
+2 km extent), and
 
-  1. extracts its towers twice through the user entry point
-     ``extract(las, device="cuda")`` with every kernel's launch counter reset
-     just before, and requires 24/24 towers, the centroid of each tower's
-     saved member points within 2 m (xy) of a generated centre, and every
-     kernel of the path launched;
+  1. the exact path: extracts the towers twice through the user entry point
+     ``extract(las, device="cuda")`` and requires 24/24 towers, the centroid
+     of each tower's saved member points within 2 m (xy) of a generated
+     centre, and every kernel of the path launched;
   2. checks that a small tile extracts identically on the GPU and through
      the plain PyTorch versions on the CPU (which the CPU test suite holds
      against the JAX reference);
+  4. the fast path through its user entry point
+     ``extract_from_points_resolving(pts, fast=True, device="cuda")``:
+     24/24 towers, each generated tower within 2 m (xy) of an accepted
+     tower's centroid, every kernel of the path launched;
+  5. bench.py's configuration (fused front-end + accumulator OBB +
+     filters; 4,096 cells, density floor 3, pre-cut /6 settled toward /4
+     on overflow): 24/24 accepted, no overflow, ms per iteration by CUDA
+     events; once more without the pre-cut, which packs the cell table
+     with compact_indices;
+  6. checks that the fast path on a 131,072-row pre-cut tile gives the
+     same labels, keep, counts and accepted towers on the GPU as through
+     the plain versions on the CPU, and tower centres within 1 mm;
   3. runs each kernel and its plain PyTorch version on the same device
-     tensors at the shapes the main path gives it, requires agreement
-     (integer outputs, pop, counts and extremes identical; OBB sums within
-     the f32 summation bound) and times both with CUDA events.
+     tensors at the shapes the paths give it, requires agreement (integer
+     outputs, pop, counts and extremes identical; OBB sums within the f32
+     summation bound), times both with CUDA events and computes each
+     kernel's bound (the larger of its bytes over 3.35 TB/s and its float32
+     operations over 67 TFLOP/s, counted from this run's inputs).
 
-Prints the card's name and power limit, one JSON line of per-kernel
-results, and as its last line {"ok": true, "device": {...}}.  Any failure
-raises: the exit code is non-zero and the last line is not printed.  It
-imports nothing of JAX.
+Launch counts are reset just before each path's run (1, 4, 5) and read
+just after.  Prints the card's name and power limit, one JSON line of
+per-kernel results, and as its last line {"ok": true, "device": {...}}.
+Any failure raises: the exit code is non-zero and the last line is not
+printed.  It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -42,19 +58,36 @@ import torch
 N_POINTS = 4 * 1024 * 1024
 SEED = 7
 TOWER_TOL_M = 2.0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+BENCH_ITERS = 10
 
-KERNELS = (
-    ("compactrows", "pointcloudhookup_tpu/ops/pallas/compactrows.py:320"),
-    ("segscan", "pointcloudhookup_tpu/ops/pallas/segscan.py:104"),
-    ("neighbor", "pointcloudhookup_tpu/ops/pallas/neighbor.py:133"),
-    ("cluster_converge", "pointcloudhookup_tpu/ops/pallas/cluster_converge.py:259"),
-    ("obb_accum", "pointcloudhookup_tpu/ops/pallas/obb_accum.py:301"),
-)
+# name -> (source, TPU kernel it replaces, (module, launch counter))
+KERNELS = {
+    "compactrows": ("compactrows.cu", "pointcloudhookup_tpu/ops/pallas/compactrows.py:320",
+                    ("compactrows", "launches")),
+    "segscan": ("segscan.cu", "pointcloudhookup_tpu/ops/pallas/segscan.py:104",
+                ("segscan", "launches")),
+    "neighbor": ("neighbor.cu", "pointcloudhookup_tpu/ops/pallas/neighbor.py:133",
+                 ("neighbor", "launches")),
+    "cluster_converge": ("cluster_converge.cu",
+                         "pointcloudhookup_tpu/ops/pallas/cluster_converge.py:259",
+                         ("cluster_converge", "launches")),
+    "obb_accum": ("obb_accum.cu", "pointcloudhookup_tpu/ops/pallas/obb_accum.py:301",
+                  ("obb_accum", "launches")),
+    "obb_accumulate": ("obb_accum.cu", "pointcloudhookup_tpu/ops/pallas/obb_accum.py:168",
+                       ("obb_accum", "launches_morton")),
+    "compact_indices": ("compactidx.cu", "pointcloudhookup_tpu/ops/pallas/compactidx.py:122",
+                        ("compactidx", "launches")),
+}
+EXACT_PATH = ("compactrows", "segscan", "neighbor", "cluster_converge", "obb_accum")
+FAST_PATH = ("compactrows", "segscan", "cluster_converge", "obb_accumulate")
+BENCH_PATH = FAST_PATH + ("compact_indices",)
 
 
 def corridor_tile(n: int, seed: int):
     """bench.py's build_workload tile in world coordinates (f64)."""
-    from pointcloudhookup_tpu.io.synthetic import synthetic_corridor
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
 
     rng = np.random.default_rng(seed)
     n_towers = 24
@@ -70,6 +103,13 @@ def corridor_tile(n: int, seed: int):
         n_line=0,
     )
     return pts[:n], centers
+
+
+def padded(pts, cap: int):
+    """Centred float32 rows padded to cap, and their mask."""
+    xyz = np.zeros((cap, 3), np.float32)
+    xyz[: len(pts)] = (pts - pts.mean(axis=0)).astype(np.float32)
+    return xyz, np.arange(cap) < len(pts)
 
 
 def timed(fn, reps: int):
@@ -109,26 +149,85 @@ def require_equal(name, got, ref):
             )
 
 
+def profile_iteration(fn, top: int = 15):
+    """One call of fn under torch.profiler: its wall ms, the device's busy
+    ms (device-side kernels and copies, summed), the idle share of the
+    wall, and the top device ms by kernel name; device figures are None
+    when the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: an aten op's row repeats its kernels' time
+    device_us = {
+        e.key: e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    }
+    device_ms = sum(device_us.values()) / 1e3
+    ranked = sorted(device_us.items(), key=lambda kv: -kv[1])[:top]
+    if device_ms == 0.0:
+        return dict(wall_ms=wall_ms, device_ms=None, idle_share=None, top=[])
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                idle_share=max(0.0, 1.0 - device_ms / wall_ms),
+                top=[(k, v / 1e3) for k, v in ranked])
+
+
+def nearest_xy(centers, xy) -> float:
+    """The largest distance (xy) from a generated tower to the nearest of
+    the given positions."""
+    dist = np.linalg.norm(centers[:, None, :2] - np.asarray(xy)[None, :, :2], axis=2)
+    return float(dist.min(axis=1).max())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
 
-    from pointcloudhookup_tpu.config import ClusterParams, ExtractParams
-    from pointcloudhookup_tpu.io.las import make_las, read_las, write_las
+    from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams
     from pointcloudhookup_tpu_torch.core.batch import round_up
-    from pointcloudhookup_tpu_torch.models import pipeline
-    from pointcloudhookup_tpu_torch.ops import frontend_exact
+    from pointcloudhookup_tpu_torch.io.las import make_las, read_las, write_las
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
+    from pointcloudhookup_tpu_torch.models import overflow, pipeline
+    from pointcloudhookup_tpu_torch.models.towers import filter_and_dedup
+    from pointcloudhookup_tpu_torch.ops import frontend_exact, frontend_fused
     from pointcloudhookup_tpu_torch.ops.kernels import (
         build,
         cluster_converge,
+        compactidx,
         compactrows,
         neighbor,
         obb_accum,
         segscan,
     )
-    from pointcloudhookup_tpu_torch.ops.obb import _compact_valid_rows
+    from pointcloudhookup_tpu_torch.ops.morton import morton_decode
+    from pointcloudhookup_tpu_torch.ops.obb import (
+        _compact_valid_rows,
+        cluster_obb_stats_accum,
+    )
+
+    counters = {
+        name: (importlib.import_module(f"pointcloudhookup_tpu_torch.ops.kernels.{mod}"), attr)
+        for name, (_, _, (mod, attr)) in KERNELS.items()
+    }
+
+    def reset_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts(path_kernels, what):
+        counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        print(f"launches in {what}: {counts}")
+        missing = [name for name in path_kernels if counts[name] == 0]
+        if missing:
+            raise AssertionError(f"{what} never launched: {missing}")
+        return counts
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -145,10 +244,7 @@ def main() -> int:
     build.library()
     print(f"kernels built in {build_s:.1f} s -> {os.path.relpath(lib_path)}")
 
-    modules = dict(
-        compactrows=compactrows, segscan=segscan, neighbor=neighbor,
-        cluster_converge=cluster_converge, obb_accum=obb_accum,
-    )
+    launches = {}
     logs = []
     walls = []
     pts, centers = corridor_tile(N_POINTS, SEED)
@@ -160,12 +256,11 @@ def main() -> int:
         print(f"tile: {len(pts)} points, {len(centers)} towers, LAS written in "
               f"{time.perf_counter() - t0:.1f} s")
 
-        # ---- 1. the main path through the user entry point; the first
+        # ---- 1. the exact path through the user entry point; the first
         # call also saves each tower's member points (output_dir), the
         # second is timed alone
         out_dir = os.path.join(tmp, "towers")
-        for mod in modules.values():
-            mod.launches = 0
+        reset_counts()
         for call in range(2):
             logs.clear()
             torch.cuda.synchronize()
@@ -176,7 +271,7 @@ def main() -> int:
             )
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        launches = {name: mod.launches for name, mod in modules.items()}
+        launches["exact"] = read_counts(EXACT_PATH, "the two extract() calls")
         centroids = np.array([
             read_las(os.path.join(out_dir, f"tower_{t.label}.las")).xyz().mean(axis=0)
             for t in towers
@@ -184,31 +279,19 @@ def main() -> int:
     ladder = next(line for line in logs if line.startswith("exact path:"))
     print(f"extract(): {len(towers)} towers; {ladder}; wall ms "
           f"first {walls[0]:.1f} (with per-tower LAS output), second {walls[1]:.1f}")
-    for t, c in zip(towers, centroids):
-        print(f"  {t.id}: box center=({t.center[0]:.2f},{t.center[1]:.2f},"
-              f"{t.center[2]:.2f}) centroid=({c[0]:.2f},{c[1]:.2f}) h={t.height:.1f} "
-              f"w={t.width:.1f} pts={t.num_points}")
-    print(f"launches in the two extract() calls: {launches}")
-    missing = [name for name, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"the main path never launched: {missing}")
     if len(towers) != len(centers):
         raise AssertionError(f"{len(towers)} towers found, {len(centers)} generated")
     # the member points' centroid locates a tower; the min-area box centre
     # also spans the vegetation cells adopted as border (reported only)
-    for what, xy in (("box centre", np.array([t.center[:2] for t in towers])),
-                     ("centroid", centroids[:, :2])):
-        dist = np.linalg.norm(centers[:, None, :2] - xy[None, :, :], axis=2)
-        worst = float(dist.min(axis=1).max())
-        print(f"worst generated-tower distance to the nearest extracted {what}: "
-              f"{worst:.3f} m (xy)")
+    box = nearest_xy(centers, [t.center for t in towers])
+    worst = nearest_xy(centers, centroids)
+    print(f"exact path: worst generated-tower distance to the nearest box centre "
+          f"{box:.3f} m, to the nearest member centroid {worst:.3f} m (xy)")
     if worst > TOWER_TOL_M:
         raise AssertionError(f"a generated tower has no extracted centroid within "
                              f"{TOWER_TOL_M} m (worst {worst:.2f} m)")
 
     # ---- 2. small tile: GPU kernels vs the plain versions on the CPU
-    from pointcloudhookup_tpu.io.synthetic import synthetic_corridor
-
     small, _ = synthetic_corridor(
         np.random.default_rng(42), n_ground=4000, n_veg=800, pts_per_tower=400,
         extent=250.0,
@@ -226,35 +309,134 @@ def main() -> int:
             raise AssertionError("small tile: tower centres differ by > 1 mm")
     print(f"small tile: GPU == CPU plain versions ({len(tg)} towers)")
 
-    # ---- 3. each kernel vs its plain version at the path's shapes
-    # inputs as extract_from_points pads them; capacities as the retry
-    # ladder settles them (a third, uncounted run of the path)
+    # ---- 4. the fast path through its user entry point
     params = ExtractParams()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fast_towers, info = overflow.extract_from_points_resolving(
+        pts, params, fast=True, device=dev
+    )
+    torch.cuda.synchronize()
+    resolver_ms = (time.perf_counter() - t0) * 1e3
+    launches["fast"] = read_counts(FAST_PATH, "extract_from_points_resolving(fast=True)")
+    worst_fast = nearest_xy(centers, [t.centroid for t in fast_towers])
+    print(f"resolver (fast): {len(fast_towers)} towers in {resolver_ms:.1f} ms; "
+          f"tiles run {info['tiles_run']}, saturated tiles {info['saturated_tiles']}, "
+          f"resolved {info['resolved']}; worst generated-tower distance to the "
+          f"nearest centroid {worst_fast:.3f} m, box centre "
+          f"{nearest_xy(centers, [t.center for t in fast_towers]):.3f} m (xy)")
+    if len(fast_towers) != len(centers) or worst_fast > TOWER_TOL_M:
+        raise AssertionError(f"fast path: {len(fast_towers)} towers, worst centroid "
+                             f"distance {worst_fast:.2f} m")
+
+    # ---- 5. bench.py's configuration on the card
+    xyz_np, mask_np = padded(pts, N_POINTS)
+    xyz_b = torch.from_numpy(xyz_np).to(dev)
+    mask_b = torch.from_numpy(mask_np).to(dev)
+    bench_kw = dict(max_cells=4096, min_cell_points=3, geometric_voxels=True,
+                    emit="codes", core_cap=2048, core_flood_cells=16384)
+
+    def bench_iter(precut_div):
+        hi, lo, keep, labels, base, mn, over, _ = frontend_fused.fused_downsample_ground_cluster(
+            xyz_b, mask_b, params, precut_div=precut_div, return_cells_overflow=True,
+            **bench_kw,
+        )
+        stats = cluster_obb_stats_accum(
+            hi, lo, labels, keep, mn, max_clusters=params.max_clusters,
+            num_angles=params.obb_angles,
+        )
+        return stats, filter_and_dedup(stats, params.filters), over
+
+    reset_counts()
+    precut_div = 6
+    while True:  # settle the pre-cut as bench.py does
+        over = float(bench_iter(precut_div)[2])
+        if over <= 0.0 or precut_div <= 4:
+            break
+        precut_div -= 1
+    bench = {}
+    for div in (precut_div, 0):
+        ms, (stats, accepted, over) = timed(lambda d=div: bench_iter(d), BENCH_ITERS)
+        found = int(accepted.sum())
+        bench[div] = dict(ms=ms, mpts=N_POINTS / ms / 1e3, towers=found,
+                          overflow=float(over))
+        print(f"bench config, precut_div {div}: {ms:.3f} ms/iteration, "
+              f"{N_POINTS / ms / 1e3:.1f} Mpts/s, {found}/{len(centers)} accepted, "
+              f"overflow {float(over)}")
+        if found != len(centers) or float(over) != 0.0:
+            raise AssertionError(f"bench config (precut_div {div}): {found} towers, "
+                                 f"overflow {float(over)}")
+    launches["bench"] = read_counts(BENCH_PATH, "the bench configuration runs")
+    profile = profile_iteration(lambda: bench_iter(precut_div))
+    busy = (f"device busy {profile['device_ms']:.3f} ms (idle "
+            f"{100 * profile['idle_share']:.1f} %)" if profile["device_ms"] is not None
+            else "device time not measured (the profiler saw none)")
+    print(f"bench config, precut_div {precut_div}, one profiled iteration: wall "
+          f"{profile['wall_ms']:.3f} ms, {busy}; device ms by kernel:")
+    for name, ms in profile["top"]:
+        print(f"  {ms:8.3f}  {name[:110]}")
+
+    # ---- 6. 131,072-row pre-cut tile: GPU vs the plain versions on the CPU
+    n6 = 131072
+    xs6 = np.linspace(-400, 400, 6)
+    pts6, _ = synthetic_corridor(
+        np.random.default_rng(5), n_ground=int(n6 * 0.8), n_veg=int(n6 * 0.12),
+        towers=tuple(zip(xs6, 30.0 * np.sin(xs6 / 200.0))),
+        pts_per_tower=(n6 - int(n6 * 0.92)) // 6, extent=450.0,
+    )
+    xyz6, mask6 = padded(pts6[:n6], n6)
+    p6 = ExtractParams(max_clusters=64)
+    kw6 = dict(max_cells=2048, min_cell_points=3, geometric_voxels=True, precut_div=4)
+    out_g = frontend_fused.fused_extract_step(
+        torch.from_numpy(xyz6).to(dev), torch.from_numpy(mask6).to(dev), p6, **kw6)
+    out_c = frontend_fused.fused_extract_step(
+        torch.from_numpy(xyz6), torch.from_numpy(mask6), p6, **kw6)
+    for key in ("labels", "ground_keep", "count", "accepted"):
+        if not torch.equal(out_g[key].cpu(), out_c[key]):
+            raise AssertionError(f"pre-cut tile: GPU and CPU differ in {key}")
+    acc6 = out_c["accepted"]
+    d6 = (out_g["center"].cpu() - out_c["center"])[acc6].abs()
+    if d6.numel() and float(d6.max()) > 1e-3:
+        raise AssertionError("pre-cut tile: tower centres differ by > 1 mm")
+    print(f"pre-cut tile ({n6} rows, capacity {out_c['labels'].shape[0]}): GPU == CPU "
+          f"plain versions ({int(acc6.sum())} towers)")
+
+    # ---- 3. each kernel vs its plain version at the paths' shapes.
+    # Exact path: inputs as extract_from_points pads them; capacities as
+    # the retry ladder settles them (an uncounted run of the path)
     n_cap = round_up(len(pts), 32768)
-    xyz_np = np.zeros((n_cap, 3), np.float32)
-    xyz_np[: len(pts)] = (pts - pts.mean(axis=0)).astype(np.float32)
-    mask_np = np.arange(n_cap) < len(pts)
+    xyz_e, mask_e = padded(pts, n_cap)
     plan = pipeline._exact_fast_plan(pts, params, n_cap)
     settled = pipeline._extract_stats_exact_fast(
-        xyz_np, mask_np, params, plan, device=dev
+        xyz_e, mask_e, params, plan, device=dev
     )["ladder"]
     print(f"settled ladder: {settled}")
-    xyz = torch.from_numpy(xyz_np).to(dev)
-    mask = torch.from_numpy(mask_np).to(dev)
+    xyz = torch.from_numpy(xyz_e).to(dev)
+    mask = torch.from_numpy(mask_e).to(dev)
     kw = dict(
         cell_bits=plan, compact_cap=settled["compact_cap"],
         max_cells=params.cluster.max_cells,
         min_cell_points=settled["floor"], core_cap=settled["core_cap"],
     )
-    results = {name: [] for name in modules}
+    results = {name: [] for name in KERNELS}
 
-    def case(name, label, kernel_fn, plain_fn, compare, reps=5, plain_reps=3):
+    def case(name, label, kernel_fn, plain_fn, compare, *, nbytes, flops=0.0,
+             library_fn=None, reps=5, plain_reps=3):
         ms, got = timed(kernel_fn, reps)
         plain_ms, ref = timed(plain_fn, plain_reps)
+        lib_ms = timed(library_fn, reps)[0] if library_fn is not None else None
         err = compare(got, ref)
-        results[name].append(dict(case=label, ms=ms, plain_ms=plain_ms, max_abs_err=err))
-        print(f"{name:17s} {label:44s} kernel {ms:9.3f} ms  plain {plain_ms:9.3f} ms"
-              f"  max|diff| {err}")
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        results[name].append(dict(
+            case=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+            bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+        ))
+        lib = f"  library {lib_ms:8.3f} ms" if lib_ms is not None else ""
+        print(f"{name:16s} {label:46s} kernel {ms:8.3f} ms  plain {plain_ms:9.3f} ms"
+              f"{lib}  bound {max(t_bytes, t_ops):.4f} ms  max|diff| {err}")
 
     def exact(name):
         def cmp(got, ref):
@@ -267,11 +449,13 @@ def main() -> int:
     chans = tuple(xyz[:, a].contiguous().view(torch.int32) for a in range(3)) + (
         torch.arange(n_cap, dtype=torch.int32, device=dev),
     )
+    stacked = torch.stack(chans)
     cap = kw["compact_cap"]
     case("compactrows", f"keep[{n_cap}] x4 -> cap {cap}",
          lambda: compactrows.compact_rows_multi(keep, chans, cap),
          lambda: compactrows.compact_rows_multi_plain(keep, chans, cap),
-         exact("compactrows"))
+         exact("compactrows"), nbytes=n_cap * (1 + 4 * 4) + 4 * 4 * cap,
+         library_fn=lambda: stacked[:, keep])
 
     # segscan: per-cell population (add, reverse) and the label fill (max)
     ck_s = frontend_exact.exact_extract_graph(xyz, mask, params, _cut=3, **kw)["ck_s"]
@@ -285,44 +469,56 @@ def main() -> int:
         case("segscan", label,
              lambda v=vals, o=op, r=rev: segscan.segmented_scan(v, c_start, o, r),
              lambda v=vals, o=op, r=rev: segscan.segmented_scan_plain(v, c_start, o, r),
-             exact("segscan"))
+             exact("segscan"), nbytes=cap * (4 + 1 + 4))
 
-    # neighbor + cluster_converge on the dense-cell table
+    # neighbor + cluster_converge on the dense-cell table; a pair test is
+    # 3 subtractions, 3 products and 2 sums, plus the reduction: 9 flops
     cells = frontend_exact.exact_extract_graph(xyz, mask, params, _cut=4, **kw)
     centers_t, ccount, alive = cells["centers"], cells["ccount"], cells["cell_alive"]
     m = centers_t.shape[0]
+    n_alive = int(alive.sum())
     eps2 = torch.tensor(params.cluster.eps, dtype=torch.float32, device=dev) ** 2
     zeros_i = torch.zeros(m, dtype=torch.int32, device=dev)
-    case("neighbor", f"pop M={m}",
+    case("neighbor", f"pop M={m} ({n_alive} live)",
          lambda: neighbor.neighbor_reduce(centers_t, zeros_i, ccount, alive, eps2, mode="pop"),
          lambda: neighbor.neighbor_reduce_plain(centers_t, zeros_i, ccount, alive, eps2, mode="pop"),
-         exact("neighbor"))
+         exact("neighbor"), nbytes=m * (12 + 4 + 1 + 4), flops=9.0 * n_alive * n_alive)
     pop, _ = neighbor.neighbor_reduce(centers_t, zeros_i, ccount, alive, eps2, mode="pop")
     core = alive & (pop >= float(params.cluster.min_points))
+    n_core = int(core.sum())
     iota_m = torch.arange(m, dtype=torch.int32, device=dev)
     zeros_f = torch.zeros(m, dtype=torch.float32, device=dev)
-    case("neighbor", f"lmin M={m}, allowed=core",
+    case("neighbor", f"lmin M={m}, allowed=core ({n_core})",
          lambda: neighbor.neighbor_reduce(centers_t, iota_m, zeros_f, core, eps2, mode="lmin"),
          lambda: neighbor.neighbor_reduce_plain(centers_t, iota_m, zeros_f, core, eps2, mode="lmin"),
-         exact("neighbor"))
+         exact("neighbor"), nbytes=m * (12 + 4 + 1 + 4), flops=9.0 * n_alive * n_core)
     ccap = min(kw["core_cap"], m)
-    (core_rows,), n_core, _ = _compact_valid_rows(core, (iota_m,), ccap, fill=m)
-    slot_ok = torch.arange(ccap, device=dev) < torch.clamp(n_core, max=ccap)
+    (core_rows,), n_core_t, _ = _compact_valid_rows(core, (iota_m,), ccap, fill=m)
+    slot_ok = torch.arange(ccap, device=dev) < torch.clamp(n_core_t, max=ccap)
     core_centers = torch.where(
         slot_ok[:, None], centers_t[torch.clamp(core_rows, 0, m - 1)], 3.0e38
     ).contiguous()
     ones_c = torch.ones(ccap, dtype=torch.float32, device=dev)
     iota_c = torch.arange(ccap, dtype=torch.int32, device=dev)
-    case("cluster_converge", f"core table {ccap} ({int(n_core)} core), min_points 0",
+
+    def converge_flops(live, n_core_cells):
+        # pop pass + one flood pass per Jacobi round + border pass
+        return 9.0 * (live * live + cluster_converge.rounds * n_core_cells ** 2
+                      + live * n_core_cells)
+
+    cluster_converge.cluster_cells(core_centers, ones_c, slot_ok, iota_c, eps2, 0.0)
+    case("cluster_converge", f"core table {ccap} ({n_core} core), min_points 0",
          lambda: cluster_converge.cluster_cells(core_centers, ones_c, slot_ok, iota_c, eps2, 0.0),
          lambda: cluster_converge.cluster_cells_plain(core_centers, ones_c, slot_ok, iota_c, eps2, 0.0),
-         exact("cluster_converge"))
+         exact("cluster_converge"), nbytes=ccap * (12 + 4 + 1 + 4 + 4 + 4),
+         flops=converge_flops(n_core, n_core))
+    mp = float(params.cluster.min_points)
+    cluster_converge.cluster_cells(centers_t, ccount, alive, iota_m, eps2, mp)
     case("cluster_converge", f"full table {m}, min_points {params.cluster.min_points}",
-         lambda: cluster_converge.cluster_cells(centers_t, ccount, alive, iota_m, eps2,
-                                                float(params.cluster.min_points)),
-         lambda: cluster_converge.cluster_cells_plain(centers_t, ccount, alive, iota_m, eps2,
-                                                      float(params.cluster.min_points)),
-         exact("cluster_converge"), reps=2, plain_reps=1)
+         lambda: cluster_converge.cluster_cells(centers_t, ccount, alive, iota_m, eps2, mp),
+         lambda: cluster_converge.cluster_cells_plain(centers_t, ccount, alive, iota_m, eps2, mp),
+         exact("cluster_converge"), nbytes=m * (12 + 4 + 1 + 4 + 4 + 4),
+         flops=converge_flops(n_alive, n_core), reps=2, plain_reps=1)
 
     # obb_accum over the cell-sorted rows and their labels
     full = frontend_exact.exact_extract_graph(xyz, mask, params, **kw)
@@ -330,52 +526,100 @@ def main() -> int:
     lab_s = full["labels_sorted"]
     px, py, pz = (xyz[rows, a].contiguous() for a in range(3))
     k, a = params.max_clusters, params.obb_angles
-    mag = obb_accum.obb_accumulate_xyz_plain(px.abs(), py.abs(), pz.abs(), lab_s,
-                                             max_clusters=k, num_angles=a)
+    out_bytes = 4 * (6 * k + 4 * k * a)
 
-    def cmp_obb(got, ref):
+    def cmp_obb(name, mag):
         # counts and extremes are order-free: identical.  The sums of one
         # cluster's n coordinates, added in two orders (atomics in both),
         # may differ by up to 2 n u sum|x| (u = 2**-24, the recursive
         # summation bound for each side); the centroid difference is
         # printed in metres.
-        err = 0.0
-        cnt = ref["cnt"].double()
-        for key in obb_accum.NAMES:
-            d = (got[key].double() - ref[key].double()).abs()
-            err = max(err, float(d.max()))
-            if key in ("sx", "sy", "sz"):
-                bound = 2.0 * cnt * 2.0**-24 * mag[key].double() + 1e-6
-                if bool((d > bound).any()):
-                    raise AssertionError(f"obb_accum: {key} beyond the f32 summation bound")
-                cen = float((d / cnt.clamp(min=1.0)).max())
-                print(f"obb_accum: {key} max |diff| {float(d.max())}, as a centroid {cen} m")
-            elif not torch.equal(got[key], ref[key]):
-                raise AssertionError(f"obb_accum: {key} differs (max |diff| {float(d.max())})")
-        return err
+        def cmp(got, ref):
+            err = 0.0
+            cnt = ref["cnt"].double()
+            for key in obb_accum.NAMES:
+                d = (got[key].double() - ref[key].double()).abs()
+                err = max(err, float(d.max()))
+                if key in ("sx", "sy", "sz"):
+                    bound = 2.0 * cnt * 2.0**-24 * mag[key].double() + 1e-6
+                    if bool((d > bound).any()):
+                        raise AssertionError(f"{name}: {key} beyond the f32 summation bound")
+                    cen = float((d / cnt.clamp(min=1.0)).max())
+                    print(f"{name}: {key} max |diff| {float(d.max())}, as a centroid {cen} m")
+                elif not torch.equal(got[key], ref[key]):
+                    raise AssertionError(f"{name}: {key} differs (max |diff| {float(d.max())})")
+            return err
+        return cmp
 
-    case("obb_accum", f"rows {cap}, K={k}, A={a}",
+    mag = obb_accum.obb_accumulate_xyz_plain(px.abs(), py.abs(), pz.abs(), lab_s,
+                                             max_clusters=k, num_angles=a)
+    n_lab = int(((lab_s >= 0) & (lab_s < k)).sum())
+    case("obb_accum", f"rows {cap} ({n_lab} labelled), K={k}, A={a}",
          lambda: obb_accum.obb_accumulate_xyz(px, py, pz, lab_s, max_clusters=k, num_angles=a),
          lambda: obb_accum.obb_accumulate_xyz_plain(px, py, pz, lab_s, max_clusters=k, num_angles=a),
-         cmp_obb)
+         cmp_obb("obb_accum", mag), nbytes=cap * 16 + out_bytes, flops=6.0 * n_lab * a)
+
+    # fast path, bench configuration: the pre-cut compaction of the Morton
+    # words, the OBB accumulation over the settled run's rows, and the
+    # cell-table pack of the run without pre-cut (compact_indices)
+    hi0, lo0, _ = frontend_fused.morton_keys(xyz_b, mask_b)
+    thresh, _ = frontend_fused.precut_threshold(xyz_b, mask_b, params)
+    keep_pre = mask_b & (xyz_b[:, 2] > thresh)
+    pcap = -(-(N_POINTS // precut_div) // 32768) * 32768
+    case("compactrows", f"Morton keep_pre[{N_POINTS}] -> cap {pcap}",
+         lambda: compactrows.compact_rows(keep_pre, hi0, lo0, pcap),
+         lambda: compactrows.compact_rows_plain(keep_pre, hi0, lo0, pcap),
+         exact("compactrows"), nbytes=N_POINTS * (1 + 2 * 4) + 2 * 4 * pcap,
+         library_fn=lambda: torch.stack((hi0, lo0))[:, keep_pre])
+
+    hi, lo, keepf, labels, _, mn = frontend_fused.fused_downsample_ground_cluster(
+        xyz_b, mask_b, params, precut_div=precut_div, **bench_kw)
+    labf = torch.where((labels >= 0) & (labels < k) & keepf, labels, -1)
+    vx, vy, vz = (v.to(torch.float32) * 0.1 + mn[i] for i, v in enumerate(morton_decode(hi, lo)))
+    mag_f = obb_accum.obb_accumulate_xyz_plain(vx.abs(), vy.abs(), vz.abs(), labf,
+                                               max_clusters=k, num_angles=a)
+    n_labf = int((labf >= 0).sum())
+    case("obb_accumulate", f"rows {hi.shape[0]} ({n_labf} labelled), K={k}, A={a}",
+         lambda: obb_accum.obb_accumulate(hi, lo, labf, mn, max_clusters=k, num_angles=a),
+         lambda: obb_accum.obb_accumulate_plain(hi, lo, labf, mn, max_clusters=k, num_angles=a),
+         cmp_obb("obb_accumulate", mag_f), nbytes=hi.shape[0] * 12 + 12 + out_bytes,
+         flops=6.0 * n_labf * a)
+
+    dense_start, _ = frontend_fused.fused_downsample_ground_cluster(
+        xyz_b, mask_b, params, precut_div=0, _cut=3, **bench_kw)
+    mc = bench_kw["max_cells"]
+    case("compact_indices",
+         f"dense_start[{N_POINTS}] ({int(dense_start.sum())} set) -> m {mc}",
+         lambda: compactidx.compact_indices(dense_start, mc),
+         lambda: compactidx.compact_indices_plain(dense_start, mc),
+         exact("compact_indices"), nbytes=N_POINTS + 4 * mc,
+         library_fn=lambda: torch.nonzero(dense_start))
 
     entries = []
-    for name, replaces in KERNELS:
+    for name, (source, replaces, _) in KERNELS.items():
         cases = results[name]
+        by_path = {path: counts[name] for path, counts in launches.items()}
+        lib = [c["library_ms"] for c in cases if c["library_ms"] is not None]
+        worst = max(cases, key=lambda c: c["bound_ms"])
         entries.append(dict(
             name=name,
             route="cuda",
-            source=f"pointcloudhookup_tpu_torch/csrc/{name}.cu",
+            source=f"pointcloudhookup_tpu_torch/csrc/{source}",
             replaces=replaces,
-            launches=launches[name],
+            launches=sum(by_path.values()),
+            launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=sum(c["ms"] for c in cases),
             plain_ms=sum(c["plain_ms"] for c in cases),
+            bound_ms=sum(c["bound_ms"] for c in cases),
+            bound_by=worst["bound_by"],
+            library_ms=sum(lib) if lib else None,
             cases=cases,
         ))
     print(json.dumps(dict(
-        card=smi, extract_ms=walls[1], extract_first_ms=walls[0],
-        build_s=build_s,
+        card=smi, build_s=build_s, extract_ms=walls[1], extract_first_ms=walls[0],
+        resolver_fast_ms=resolver_ms, resolver_info=info,
+        bench_precut_div=precut_div, bench=bench, bench_profile=profile,
     )))
     print(json.dumps(dict(kernels=entries)))
     print(json.dumps(dict(

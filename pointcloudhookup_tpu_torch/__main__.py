@@ -10,7 +10,7 @@ import argparse
 
 
 def cmd_extract(args):
-    from pointcloudhookup_tpu.config import (
+    from pointcloudhookup_tpu_torch.config import (
         ClusterParams,
         ExtractParams,
         TowerFilterParams,

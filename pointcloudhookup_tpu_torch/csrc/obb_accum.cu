@@ -1,11 +1,18 @@
-// Sort-free per-cluster OBB accumulation over raw coordinates.
+// Sort-free per-cluster OBB accumulation, over raw coordinates or over
+// Morton-coded voxel rows.
 //
 // Replaces pointcloudhookup_tpu/ops/pallas/obb_accum.py::obb_accumulate_xyz
-// (pallas_call at :346).  Rows with a label in [0, K) accumulate
+// (pallas_call at :346) and ::obb_accumulate (pallas_call at :222).  Rows
+// with a label in [0, K) accumulate
 //   per cluster:          cnt, sx, sy, sz (sums), zlo, zhi
 //   per (cluster, angle): ulo, uhi, vlo, vhi of
 //                         u = x cos + y sin,  v = y cos - x sin
-// at angle j * (pi/2) / A; labels >= K or < 0 are skipped.
+// at angle j * (pi/2) / A; labels >= K or < 0 are skipped.  The Morton
+// variant decodes each row's voxel centre in the loader:
+//   x = fmaf(float(_compact10(lo >> 0) | _compact10(hi >> 0) << 10), vs, off_x)
+// (y with shift 1, z with shift 2), off = mn + vs/2 rounded once, as the
+// TPU kernel computes it (obb_accum.py:141-143, 204-205); the product and
+// sum round once, as XLA:CPU compiles that line (a fused multiply-add).
 //
 // Bound: atomics.  Every row of a cluster updates the same 4 x A
 // addresses, so a row-per-thread atomic pass would issue ~1e3 atomics per
@@ -19,7 +26,8 @@
 // atomics by 32; the run walk divides them by the run length (up to 512).
 // Thread 0 also reduces the per-cluster sums and z extremes of each run.
 // Tiles with no labelled row exit after one barrier.  Float min/max
-// atomics use the ordered-integer trick with -0.0 folded to +0.0.
+// atomics use the ordered-integer trick with -0.0 folded to +0.0.  The two
+// variants share the tile walk and differ only in the row loader.
 #include "common.cuh"
 
 namespace {
@@ -69,11 +77,50 @@ __global__ void init_kernel(float* __restrict__ out, int k, int a) {
   }
 }
 
-__global__ void accum_kernel(const float* __restrict__ x,
-                             const float* __restrict__ y,
-                             const float* __restrict__ z,
-                             const int* __restrict__ labels, long long n,
-                             const float* __restrict__ cos_a,
+// Row loaders: the coordinates of row i.
+struct XyzRows {
+  const float* __restrict__ x;
+  const float* __restrict__ y;
+  const float* __restrict__ z;
+  __device__ __forceinline__ void load(long long i, float& px, float& py,
+                                       float& pz) const {
+    px = x[i];
+    py = y[i];
+    pz = z[i];
+  }
+};
+
+__device__ __forceinline__ int compact10(int x) {
+  x &= 0x09249249;
+  x = (x | (x >> 2)) & 0x030C30C3;
+  x = (x | (x >> 4)) & 0x0300F00F;
+  x = (x | (x >> 8)) & 0x030000FF;
+  x = (x | (x >> 16)) & 0x3FF;
+  return x;
+}
+
+struct MortonRows {
+  const int* __restrict__ hi;
+  const int* __restrict__ lo;
+  const float* __restrict__ off;  // float32[3]: mn + vs / 2
+  float vs;                       // voxel size
+  __device__ __forceinline__ float axis(int h, int l, int s) const {
+    const int v = compact10(l >> s) | (compact10(h >> s) << 10);
+    return __fmaf_rn(static_cast<float>(v), vs, off[s]);
+  }
+  __device__ __forceinline__ void load(long long i, float& px, float& py,
+                                       float& pz) const {
+    const int h = hi[i];
+    const int l = lo[i];
+    px = axis(h, l, 0);
+    py = axis(h, l, 1);
+    pz = axis(h, l, 2);
+  }
+};
+
+template <class Rows>
+__global__ void accum_kernel(Rows rows, const int* __restrict__ labels,
+                             long long n, const float* __restrict__ cos_a,
                              const float* __restrict__ sin_a, int k, int a,
                              float* __restrict__ out) {
   __shared__ float sx[kRows];
@@ -88,9 +135,7 @@ __global__ void accum_kernel(const float* __restrict__ x,
     int l = labels[r0 + r];
     if (l >= k || l < 0) l = -1;
     sl[r] = l;
-    sx[r] = x[r0 + r];
-    sy[r] = y[r0 + r];
-    sz[r] = z[r0 + r];
+    rows.load(r0 + r, sx[r], sy[r], sz[r]);
     any |= l >= 0;
   }
   if (!__syncthreads_or(any)) return;
@@ -170,15 +215,10 @@ __global__ void accum_kernel(const float* __restrict__ x,
   }
 }
 
-}  // namespace
-
-// x, y, z: float32[n]; labels: int32[n]; cos_a, sin_a: float32[a];
-// out: float32[6k + 4ka], initialized here.
-PCH_API int pch_obb_accumulate_xyz(const float* x, const float* y,
-                                   const float* z, const int* labels,
-                                   long long n, const float* cos_a,
-                                   const float* sin_a, int k, int a,
-                                   float* out, void* stream) {
+// out: float32[6k + 4ka], initialized here; then one pass over the rows.
+template <class Rows>
+int launch(Rows rows, const int* labels, long long n, const float* cos_a,
+           const float* sin_a, int k, int a, float* out, void* stream) {
   if (n < 0 || k < 0 || a < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long total = 6LL * k + 4LL * k * a;
@@ -189,7 +229,28 @@ PCH_API int pch_obb_accumulate_xyz(const float* x, const float* y,
   }
   if (n > 0 && k > 0) {
     accum_kernel<<<pch::blocks_for(n, kRows), kThreads, 0, s>>>(
-        x, y, z, labels, n, cos_a, sin_a, k, a, out);
+        rows, labels, n, cos_a, sin_a, k, a, out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x, y, z: float32[n]; labels: int32[n]; cos_a, sin_a: float32[a].
+PCH_API int pch_obb_accumulate_xyz(const float* x, const float* y,
+                                   const float* z, const int* labels,
+                                   long long n, const float* cos_a,
+                                   const float* sin_a, int k, int a,
+                                   float* out, void* stream) {
+  return launch(XyzRows{x, y, z}, labels, n, cos_a, sin_a, k, a, out, stream);
+}
+
+// hi, lo: int32[n] Morton words; labels: int32[n]; off: float32[3] on the
+// device, mn + vs / 2; vs: the voxel size; cos_a, sin_a: float32[a].
+PCH_API int pch_obb_accumulate(const int* hi, const int* lo, const int* labels,
+                               long long n, const float* off, float vs,
+                               const float* cos_a, const float* sin_a, int k,
+                               int a, float* out, void* stream) {
+  return launch(MortonRows{hi, lo, off, vs}, labels, n, cos_a, sin_a, k, a,
+                out, stream);
 }

@@ -20,14 +20,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from pointcloudhookup_tpu.config import (
+from pointcloudhookup_tpu_torch.config import (
     ClusterParams,
     ExtractParams,
     GroundParams,
     TowerFilterParams,
 )
-from pointcloudhookup_tpu.io.las import make_las, read_las, write_las
-from pointcloudhookup_tpu.utils.logging import Reporter
+from pointcloudhookup_tpu_torch.io.las import make_las, read_las, write_las
+from pointcloudhookup_tpu_torch.utils.logging import Reporter
 from pointcloudhookup_tpu_torch.core.batch import round_up
 from pointcloudhookup_tpu_torch.models.towers import Tower, towers_from_stats
 from pointcloudhookup_tpu_torch.ops.frontend_exact import (

@@ -1,7 +1,9 @@
 """Tower schema, acceptance filters and duplicate suppression.
 
 Counterpart of ``pointcloudhookup_tpu/models/towers.py`` (``Tower``,
-``filter_and_dedup``, ``towers_from_stats``).
+``filter_and_dedup``, ``towers_from_stats``).  The port's ``Tower`` also
+carries the member centroid: a box centre spans the border cells a
+cluster adopts, so checks locate a tower by its centroid.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pointcloudhookup_tpu.config import TowerFilterParams
+from pointcloudhookup_tpu_torch.config import TowerFilterParams
 
 
 @dataclasses.dataclass
@@ -29,6 +31,7 @@ class Tower:
     num_points: int
     label: int
     properties: Optional[dict] = None
+    centroid: Optional[np.ndarray] = None  # f64[3] world coords (members' mean)
 
 
 def filter_and_dedup(stats: dict, fp: TowerFilterParams = TowerFilterParams()):
@@ -71,12 +74,16 @@ def filter_and_dedup(stats: dict, fp: TowerFilterParams = TowerFilterParams()):
 def towers_from_stats(stats: dict, origin: np.ndarray) -> list[Tower]:
     """Host side: stats (numpy) + accepted mask -> Tower records in world
     coordinates."""
-    keys = ("accepted", "center", "extent", "north_angle", "angle", "count")
+    keys = ("accepted", "center", "extent", "north_angle", "angle", "count",
+            "centroid")
     stats = {k: np.asarray(stats[k]) for k in keys if k in stats}
     out = []
     for k in np.nonzero(stats["accepted"])[0]:
         center = np.asarray(stats["center"][k], np.float64) + origin
         ext = np.asarray(stats["extent"][k], np.float64)
+        centroid = None
+        if "centroid" in stats:
+            centroid = np.asarray(stats["centroid"][k], np.float64) + origin
         out.append(
             Tower(
                 id=f"tower_{int(k)}",
@@ -88,6 +95,7 @@ def towers_from_stats(stats: dict, origin: np.ndarray) -> list[Tower]:
                 angle=float(stats["angle"][k]),
                 num_points=int(stats["count"][k]),
                 label=int(k),
+                centroid=centroid,
             )
         )
     return out

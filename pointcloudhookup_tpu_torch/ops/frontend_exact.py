@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from pointcloudhookup_tpu.config import ExtractParams
+from pointcloudhookup_tpu_torch.config import ExtractParams
 from pointcloudhookup_tpu_torch.models.towers import filter_and_dedup
 from pointcloudhookup_tpu_torch.ops.cluster import compact_labels
 from pointcloudhookup_tpu_torch.ops.kernels.cluster_converge import cluster_cells

@@ -1,13 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every source under ``pointcloudhookup_tpu_torch/csrc/`` compiles with ONE
-``nvcc`` call into a shared library with a plain C interface, loaded with
-``ctypes`` (no PyTorch headers: a build takes seconds, not minutes).  The
-library lands in ``<repo>/build/torch_kernels/<digest>/`` where the digest
-covers the sources and the flags, so an edited kernel is rebuilt and an
-unchanged one is loaded as is.  The build runs at the first kernel launch
-of a process, never at import: the CPU test suite imports every module and
-has no ``nvcc``.
+Every ``.cu`` source under ``pointcloudhookup_tpu_torch/csrc/`` compiles
+with its own ``nvcc`` process, all started together, and one more ``nvcc``
+links the objects into a shared library with a plain C interface, loaded
+with ``ctypes`` (no PyTorch headers: a build takes seconds, not minutes).
+The library lands in ``<repo>/build/torch_kernels/<digest>/`` where the
+digest covers the sources and the flags, so an edited kernel is rebuilt
+and an unchanged one is loaded as is.  The build runs at the first kernel
+launch of a process, never at import: the CPU test suite imports every
+module and has no ``nvcc``.
 
 Flags: ``sm_90a`` (Hopper), ``-O3`` and ``--fmad=false`` -- the JAX
 reference rounds every product and sum separately, and a contracted
@@ -24,6 +25,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -33,7 +35,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 _LIB_NAME = "libpch_kernels.so"
 
@@ -61,6 +63,11 @@ _SIGNATURES = {
     "pch_obb_accumulate_xyz": (
         _I32, [_P, _P, _P, _P, _I64, _P, _P, _I32, _I32, _P, _P]
     ),
+    "pch_obb_accumulate": (
+        _I32, [_P, _P, _P, _I64, _P, _F32, _P, _P, _I32, _I32, _P, _P]
+    ),
+    "pch_compact_indices_scratch": (_I64, [_I64]),
+    "pch_compact_indices": (_I32, [_P, _I64, _I32, _P, _P, _P]),
 }
 
 _lock = threading.Lock()
@@ -102,29 +109,48 @@ def _nvcc() -> str:
     return found
 
 
-def build(verbose: bool = False) -> tuple[str, float]:
-    """Compile the library if this digest has none yet.  Returns (path,
-    seconds spent compiling; 0.0 when it was already built).  verbose adds
-    ``-Xptxas -v`` and prints the compiler's report."""
-    out = library_path()
-    if os.path.exists(out):
-        return out, 0.0
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cus = [p for p in sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *cus]
-    t0 = time.perf_counter()
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
     res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
     if res.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
             f"{res.stdout}\n{res.stderr}"
         )
+    return res
+
+
+def build(verbose: bool = False) -> tuple[str, float]:
+    """Compile the library if this digest has none yet: one ``nvcc -c``
+    per source, all at once, then one link.  Returns (path, seconds spent
+    compiling; 0.0 when it was already built).  verbose adds
+    ``-Xptxas -v`` and prints the compiler's report."""
+    out = library_path()
+    if os.path.exists(out):
+        return out, 0.0
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    t0 = time.perf_counter()
+    objs, cmds = [], []
+    for src in (p for p in sources() if p.endswith(".cu")):
+        obj = os.path.join(os.path.dirname(out), f"{os.path.basename(src)}.{tag}.o")
+        objs.append(obj)
+        cmds.append([nvcc, *NVCC_FLAGS, *extra, "-c", "-o", obj, src])
+    tmp = f"{out}.{tag}"
+    try:
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            results = list(pool.map(_run, cmds))
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs])
+        secs = time.perf_counter() - t0
+        os.replace(tmp, out)
+    finally:
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.remove(path)
     if verbose:
-        print(res.stdout + res.stderr)
-    os.replace(tmp, out)
+        for res in results:
+            print(res.stdout + res.stderr)
     return out, secs
 
 

@@ -16,6 +16,7 @@ from pointcloudhookup_tpu_torch.ops.kernels import build
 from pointcloudhookup_tpu_torch.ops.kernels.neighbor import eps_ball_reduce_plain
 
 launches = 0  # cluster_cells calls that ran the kernels (read and reset by chip_smoke.py)
+rounds = 0  # Jacobi rounds of the last such call (chip_smoke.py's bound)
 
 
 def cluster_cells(centers, ccount, alive, labels0, eps2, min_points, *,
@@ -31,7 +32,7 @@ def cluster_cells(centers, ccount, alive, labels0, eps2, min_points, *,
         return cluster_cells_plain(
             centers, ccount, alive, labels0, eps2, min_points, max_iter=max_iter
         )
-    global launches
+    global launches, rounds
     build.require_cuda("cluster_cells", centers, ccount, alive, labels0)
     if centers.dtype != torch.float32 or centers.shape != (m, 3):
         raise ValueError("centers must be float32[M, 3]")
@@ -58,7 +59,7 @@ def cluster_cells(centers, ccount, alive, labels0, eps2, min_points, *,
         ),
         "cluster_cells pop",
     )
-    for _ in range(max_iter):
+    for rounds in range(1, max_iter + 1):
         build.check(
             lib.pch_cluster_round(
                 centers.data_ptr(), core.data_ptr(), cur.data_ptr(), m, eps2,

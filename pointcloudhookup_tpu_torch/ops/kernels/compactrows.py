@@ -1,10 +1,10 @@
 """Order-preserving stream compaction of int32 channels by a keep mask.
 
 Counterpart of ``pointcloudhookup_tpu/ops/pallas/compactrows.py::
-compact_rows_multi``.  The CUDA kernel is ``csrc/compactrows.cu``; the
-plain PyTorch version below is what CPU tensors take and what the kernel
-is held against on the card.  Unlike the TPU kernel there is no alignment
-rule on N or the capacity.
+compact_rows_multi`` and of its Morton wrapper ``compact_rows``.  The CUDA
+kernel is ``csrc/compactrows.cu``; the plain PyTorch version below is what
+CPU tensors take and what the kernel is held against on the card.  Unlike
+the TPU kernel there is no alignment rule on N or the capacity.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
+from pointcloudhookup_tpu_torch.ops.morton import SENTINEL_HI
 
 launches = 0  # kernel launches in this process (read and reset by chip_smoke.py)
 
@@ -69,3 +70,23 @@ def compact_rows_multi_plain(keep, channels, capacity: int):
         o[: idx.shape[0]] = c[idx]
         outs.append(o)
     return tuple(outs), count
+
+
+def compact_rows(keep, hi, lo, capacity: int):
+    """Compact Morton (hi, lo) int32[N] rows where ``keep`` into
+    [capacity] buffers.  Returns (hi_c, lo_c, count): rows
+    [0, min(count, capacity)) hold the kept rows in input order; past
+    them hi_c holds SENTINEL_HI (sorting after every code) and lo_c zeros.
+    count is the TRUE number of kept rows."""
+    return _with_sentinel(*compact_rows_multi(keep, (hi, lo), capacity), capacity)
+
+
+def compact_rows_plain(keep, hi, lo, capacity: int):
+    """Plain PyTorch version of compact_rows: same contract."""
+    return _with_sentinel(*compact_rows_multi_plain(keep, (hi, lo), capacity), capacity)
+
+
+def _with_sentinel(channels, count, capacity: int):
+    hi_c, lo_c = channels
+    ok = torch.arange(capacity, device=hi_c.device) < torch.clamp(count, max=capacity)
+    return torch.where(ok, hi_c, SENTINEL_HI), lo_c, count

@@ -4,8 +4,8 @@ Counterpart of ``pointcloudhookup_tpu/ops/pallas/neighbor.py::
 neighbor_reduce``.  The CUDA kernel is ``csrc/neighbor.cu``.  The plain
 PyTorch version ``eps_ball_reduce_plain`` is shared with
 ``cluster_converge.py``: rows in chunks (a dense [65536, 65536] d2 would
-take 17 GB) against the allowed columns only, which leaves pop and lmin
-unchanged.
+take 17 GB) against the allowed columns near the chunk only, which leaves
+pop and lmin unchanged.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from pointcloudhookup_tpu_torch.ops.kernels import build
 launches = 0  # kernel launches in this process (read and reset by chip_smoke.py)
 
 _MODES = {"both": 0, "pop": 1, "lmin": 2}
-_CHUNK_ELEMS = 1 << 24  # d2 elements per row chunk of the plain version
+_CHUNK_ROWS = 512  # rows per chunk of the plain version
 
 
 def neighbor_reduce(xyz, labels, weights, allowed, eps2, *, sentinel=None,
@@ -83,12 +83,19 @@ def neighbor_reduce_plain(xyz, labels, weights, allowed, eps2, *,
 def eps_ball_reduce_plain(xyz, allowed, eps2, *, weights=None, labels=None,
                           sentinel: int = 0):
     """Pairwise eps-ball pass over the allowed columns, rows in chunks:
-    (sum of weights or None, min of labels / sentinel or None)."""
+    (sum of weights or None, min of labels / sentinel or None).
+
+    Each chunk of _CHUNK_ROWS rows (cell-ordered, so spatially compact)
+    only tests the columns inside its bounding box widened by 2 eps on
+    every axis: a column outside is farther than eps from every row of the
+    chunk, so pop and lmin are unchanged (pop sums integer-valued weights,
+    exact in any order)."""
     m = xyz.shape[0]
     dev = xyz.device
     eps2 = torch.tensor(float(eps2), dtype=torch.float32, device=dev)
+    margin = 2.0 * torch.sqrt(eps2)
     cols = torch.nonzero(allowed).squeeze(1)
-    cx, cy, cz = (xyz[cols, a] for a in range(3))
+    cxyz = xyz[cols]
     cw = weights[cols] if weights is not None else None
     cl = labels[cols] if labels is not None else None
     pop = torch.zeros(m, dtype=torch.float32, device=dev) if cw is not None else None
@@ -98,16 +105,20 @@ def eps_ball_reduce_plain(xyz, allowed, eps2, *, weights=None, labels=None,
     )
     if cols.numel() == 0 or m == 0:
         return pop, lmin
-    rows = max(1, _CHUNK_ELEMS // cols.numel())
-    for r0 in range(0, m, rows):
-        r = xyz[r0 : r0 + rows]
-        dx = r[:, 0:1] - cx[None, :]
-        dy = r[:, 1:2] - cy[None, :]
-        dz = r[:, 2:3] - cz[None, :]
+    sent = torch.tensor(sentinel, dtype=torch.int32, device=dev)
+    for r0 in range(0, m, _CHUNK_ROWS):
+        r = xyz[r0 : r0 + _CHUNK_ROWS]
+        near = ((cxyz >= r.amin(0) - margin) & (cxyz <= r.amax(0) + margin)).all(1)
+        sel = torch.nonzero(near).squeeze(1)
+        if sel.numel() == 0:
+            continue  # pop stays 0, lmin the sentinel
+        c = cxyz[sel]
+        dx = r[:, 0:1] - c[None, :, 0]
+        dy = r[:, 1:2] - c[None, :, 1]
+        dz = r[:, 2:3] - c[None, :, 2]
         nb = dx * dx + dy * dy + dz * dz <= eps2
         if pop is not None:
-            pop[r0 : r0 + rows] = torch.where(nb, cw[None, :], 0.0).sum(dim=1)
+            pop[r0 : r0 + _CHUNK_ROWS] = torch.where(nb, cw[sel][None, :], 0.0).sum(dim=1)
         if lmin is not None:
-            sent = torch.tensor(sentinel, dtype=torch.int32, device=dev)
-            lmin[r0 : r0 + rows] = torch.where(nb, cl[None, :], sent).amin(dim=1)
+            lmin[r0 : r0 + _CHUNK_ROWS] = torch.where(nb, cl[sel][None, :], sent).amin(dim=1)
     return pop, lmin

@@ -1,11 +1,19 @@
-"""Sort-free per-cluster OBB accumulators over raw coordinates.
+"""Sort-free per-cluster OBB accumulators, over raw coordinates or over
+Morton-coded voxel rows.
 
 Counterpart of ``pointcloudhookup_tpu/ops/pallas/obb_accum.py::
-obb_accumulate_xyz``.  The CUDA kernel is ``csrc/obb_accum.cu``.  The plain
+obb_accumulate_xyz`` and ``::obb_accumulate``.  The CUDA kernels are
+``csrc/obb_accum.cu``, one tile walk with two row loaders.  The plain
 PyTorch version reduces with ``scatter_reduce`` over the labelled rows in
 chunks (the JAX oracle's [N, K, A] one-hot would not fit at the path's
 shapes).  Both take the angle table from ``angle_table`` so they project
-with identical cos/sin values.
+with identical cos/sin values.  The Morton variant decodes a voxel centre
+as ``ix * vs + off`` with ``off = mn + vs/2`` rounded once, as the TPU
+kernel does (the JAX oracle adds mn and vs/2 separately, which can differ
+by one ulp), and the product and sum rounded once, as XLA:CPU compiles the
+kernel (a fused multiply-add: ``fma_f32`` here, ``__fmaf_rn`` in CUDA).
+``launches`` counts the raw-coordinate kernel, ``launches_morton`` the
+Morton one.
 """
 
 from __future__ import annotations
@@ -15,8 +23,10 @@ import math
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
+from pointcloudhookup_tpu_torch.ops.morton import fma_f32, morton_decode
 
-launches = 0  # kernel launches in this process (read and reset by chip_smoke.py)
+launches = 0  # obb_accumulate_xyz launches (read and reset by chip_smoke.py)
+launches_morton = 0  # obb_accumulate launches
 
 _BIG = 3.0e38
 _CHUNK_ROWS = 1 << 16
@@ -60,6 +70,11 @@ def obb_accumulate_xyz(x, y, z, labels, *, max_clusters: int = 128,
     )
     build.check(rc, "obb_accumulate_xyz")
     launches += 1
+    return _unpack(out, k, a)
+
+
+def _unpack(out, k: int, a: int):
+    """The accumulators dict of a kernel's flat float32[6K + 4KA] output."""
     per_cluster = out[: 6 * k].view(6, k)
     per_angle = out[6 * k :].view(4, k, a)
     return dict(zip(NAMES, (*per_cluster.unbind(0), *per_angle.unbind(0))))
@@ -104,3 +119,56 @@ def obb_accumulate_xyz_plain(x, y, z, labels, *, max_clusters: int = 128,
         ext["vhi"].scatter_reduce_(0, idx, v, "amax")
     out.update({key: val.view(k, a) for key, val in ext.items()})
     return out
+
+
+def _morton_offset(mn, voxel_size: float):
+    """(vs, off): the voxel size and mn + vs/2 as float32 tensors on mn's
+    device, rounded as the TPU kernel rounds them."""
+    vs = torch.tensor(voxel_size, dtype=torch.float32, device=mn.device)
+    return vs, (mn + vs * 0.5).to(torch.float32)
+
+
+def obb_accumulate(hi, lo, labels, mn, *, voxel_size: float = 0.1,
+                   max_clusters: int = 128, num_angles: int = 256):
+    """The accumulators of obb_accumulate_xyz over Morton-coded rows:
+    hi/lo int32[N] voxel codes on the grid with origin mn float32[3],
+    labels int32[N] (id in [0, K), anything else skips the row)."""
+    if hi.device.type == "cpu":
+        return obb_accumulate_plain(
+            hi, lo, labels, mn, voxel_size=voxel_size,
+            max_clusters=max_clusters, num_angles=num_angles,
+        )
+    global launches_morton
+    build.require_cuda("obb_accumulate", hi, lo, labels, mn)
+    n = hi.shape[0]
+    for name, t in (("hi", hi), ("lo", lo), ("labels", labels)):
+        if t.dtype != torch.int32 or t.shape != (n,):
+            raise ValueError(f"{name} must be int32[{n}]")
+    if mn.dtype != torch.float32 or mn.shape != (3,):
+        raise ValueError("mn must be float32[3]")
+    k, a = max_clusters, num_angles
+    lib = build.library()
+    _, off = _morton_offset(mn, voxel_size)
+    cos_a, sin_a = angle_table(a, hi.device)
+    out = torch.empty(6 * k + 4 * k * a, dtype=torch.float32, device=hi.device)
+    rc = lib.pch_obb_accumulate(
+        hi.data_ptr(), lo.data_ptr(), labels.data_ptr(), n, off.data_ptr(),
+        float(voxel_size), cos_a.data_ptr(), sin_a.data_ptr(), k, a,
+        out.data_ptr(), build.stream(hi.device),
+    )
+    build.check(rc, "obb_accumulate")
+    launches_morton += 1
+    return _unpack(out, k, a)
+
+
+def obb_accumulate_plain(hi, lo, labels, mn, *, voxel_size: float = 0.1,
+                         max_clusters: int = 128, num_angles: int = 256):
+    """Plain PyTorch version: same contract."""
+    vs, off = _morton_offset(mn, voxel_size)
+    x, y, z = (
+        fma_f32(v.to(torch.float32), vs, off[a])
+        for a, v in enumerate(morton_decode(hi, lo))
+    )
+    return obb_accumulate_xyz_plain(
+        x, y, z, labels, max_clusters=max_clusters, num_angles=num_angles
+    )

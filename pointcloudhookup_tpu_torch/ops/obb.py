@@ -1,8 +1,10 @@
 """Per-cluster oriented-bounding-box statistics.
 
 Counterpart of ``pointcloudhookup_tpu/ops/obb.py``: the stable compaction
-helper and the finisher that turns the OBB accumulators
-(``ops/kernels/obb_accum.py``) into per-cluster stats.  Towers are
+helper, the sort-free accumulator path of the fused front-end
+(``cluster_obb_accumulators``, ``cluster_obb_stats_accum``) and the
+finisher that turns the OBB accumulators (``ops/kernels/obb_accum.py``)
+into per-cluster stats.  Towers are
 gravity-aligned, so the box is the minimum-AREA rectangle of the XY
 footprint over a flat grid of A angles, extruded over the z extent.
 """
@@ -12,6 +14,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from pointcloudhookup_tpu_torch.ops.kernels.obb_accum import obb_accumulate
 
 _BIG = 3.0e38
 
@@ -33,6 +37,33 @@ def _compact_valid_rows(valid, payloads, cap: int, fill):
     rest = tuple(p[src] for p in payloads[1:])
     overflow = torch.clamp(n_valid - cap, min=0).to(torch.float32)
     return (first, *rest), n_valid, overflow
+
+
+def cluster_obb_accumulators(hi, lo, labels, mask, mn, *, voxel_size: float = 0.1,
+                             max_clusters: int = 128, num_angles: int = 256):
+    """RAW per-cluster OBB accumulators over Morton-coded rows (hi/lo
+    int32[N], labels int32[N], mask bool[N], grid origin mn float32[3]):
+    dict(cnt[K], sx, sy, sz, zlo, zhi, ulo[K,A], uhi, vlo, vhi).  Rows
+    outside mask or with a label outside [0, K) are skipped.  CUDA tensors
+    run the obb_accumulate kernel."""
+    k = max_clusters
+    lab = torch.where((labels >= 0) & (labels < k) & mask, labels, -1)
+    return obb_accumulate(
+        hi, lo, lab, mn, voxel_size=voxel_size, max_clusters=k,
+        num_angles=num_angles,
+    )
+
+
+def cluster_obb_stats_accum(hi, lo, labels, mask, mn, *, voxel_size: float = 0.1,
+                            max_clusters: int = 128, num_angles: int = 256):
+    """Sort-free OBB stats of the fused front-end's Morton rows: one
+    accumulation pass and the finisher.  Exact (no member cap);
+    'overflow' is always 0."""
+    acc = cluster_obb_accumulators(
+        hi, lo, labels, mask, mn, voxel_size=voxel_size,
+        max_clusters=max_clusters, num_angles=num_angles,
+    )
+    return _obb_from_accum(acc, max_clusters, num_angles)
 
 
 def obb_stats_from_accumulators(acc, max_clusters: int, num_angles: int):

@@ -1,17 +1,42 @@
-"""Exact masked percentile by radix bisection.
+"""Exact masked percentiles.
 
-Counterpart of ``pointcloudhookup_tpu/ops/percentile.py``
-(``masked_percentile_bisect`` and its helpers).  The order-preserving
-uint32 view of float32 is held in int64.  Every scalar stays a float32
-tensor, so the final lerp rounds exactly as the reference's does.
+Counterpart of ``pointcloudhookup_tpu/ops/percentile.py``: the sort-based
+``masked_percentile`` (the fast path's strided-sample base) and the
+sort-free ``masked_percentile_bisect`` with its helpers (the exact path).
+The order-preserving uint32 view of float32 is held in int64.  Every
+scalar stays a float32 tensor, so the final lerp rounds exactly as the
+reference's does.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pointcloudhookup_tpu_torch.ops.morton import fma_f32
+
 _U32 = 0xFFFFFFFF
 _SIGN = 0x80000000
+
+
+def masked_percentile(x, mask, q):
+    """Exact percentile of x[mask] with numpy's 'linear' interpolation:
+    masked entries sort to the end as +inf.  x float32[N], mask bool[N],
+    q in [0, 100]; at least one valid element.  Returns a 0-d float32
+    tensor.
+
+    The lerp ``a * (1 - frac) + b * frac`` rounds ``b * frac`` and the
+    sum once, as XLA:CPU compiles the JAX function under ``jit`` (a fused
+    multiply-add; through float64, exact unless the float64 sum itself
+    rounds onto a float32 midpoint)."""
+    f32 = torch.float32
+    n = mask.sum(dtype=torch.int32)
+    xs = torch.sort(torch.where(mask, x, torch.inf)).values
+    h = (n - 1).to(f32) * (torch.tensor(q, dtype=f32) / 100.0)
+    lo = torch.clamp(torch.floor(h).to(torch.int32), min=0)
+    lo = torch.minimum(lo, n - 1)
+    hi = torch.minimum(torch.clamp(lo + 1, min=0), n - 1)
+    frac = h - lo.to(f32)
+    return fma_f32(xs[hi], frac, xs[lo] * (1.0 - frac))
 
 
 def _f32_ordered_bits(x):

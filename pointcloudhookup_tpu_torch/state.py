@@ -7,12 +7,22 @@ dicts and the ``_cut`` intermediates of ``exact_extract_graph`` go through
 back through ``to_numpy``.  Dtypes map bool -> bool, int32 -> int32,
 float32 -> float32 and uint32 -> int64 (the port holds 32-bit keys in
 int64); ``to_numpy(..., u32=...)`` narrows named entries back to uint32.
+``extract_params_from_dict`` carries a JAX ``ExtractParams`` across: the
+system has no weights, and its parameter tree is what both packages must
+be handed identically.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from pointcloudhookup_tpu_torch.config import (
+    ClusterParams,
+    ExtractParams,
+    GroundParams,
+    TowerFilterParams,
+)
 
 _TO_TORCH = {
     np.dtype(np.bool_): torch.bool,
@@ -51,3 +61,16 @@ def to_numpy(tree, u32=()):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def extract_params_from_dict(tree: dict) -> ExtractParams:
+    """The port's ExtractParams from the nested dict of a JAX
+    ``ExtractParams`` (``dataclasses.asdict``).  A field that one package
+    has and the other lacks raises TypeError."""
+    tree = dict(tree)
+    return ExtractParams(
+        ground=GroundParams(**tree.pop("ground")),
+        cluster=ClusterParams(**tree.pop("cluster")),
+        filters=TowerFilterParams(**tree.pop("filters")),
+        **tree,
+    )

@@ -16,6 +16,7 @@ import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import (
     cluster_converge,
+    compactidx,
     compactrows,
     neighbor,
     obb_accum,
@@ -81,18 +82,45 @@ def obb_inputs(seed, size, k):
     return xyz, lab.astype(np.int32)
 
 
-def assert_acc_close(got, ref, xyz, lab, k, extremes_atol):
+def morton_inputs(seed, size, k, span=3000):
+    """Morton-coded voxel rows (int32 hi, lo) of random voxel indices below
+    span per axis, labels in runs as in obb_inputs, and a grid origin."""
+    from pointcloudhookup_tpu_torch.ops.morton import morton_decode, morton_encode
+
+    rng = np.random.default_rng(seed)
+    ijk = torch.from_numpy(rng.integers(0, span, (size, 3)).astype(np.int32))
+    hi, lo = morton_encode(ijk[:, 0], ijk[:, 1], ijk[:, 2])
+    lab = np.repeat(rng.integers(-1, k + 4, size // 16 + 1), 16)[:size]
+    mn = np.array([-246.1, -246.0, -5.1], np.float32)
+    vs = np.float32(0.1)
+    # the voxel centres, for the summation bound of assert_acc_close
+    xyz = np.stack([v.numpy() for v in morton_decode(hi, lo)], 1) * vs + mn + vs / 2
+    return n(hi), n(lo), lab.astype(np.int32), mn, xyz.astype(np.float32)
+
+
+def flag_inputs(seed, size, n_set):
+    """bool[size] with n_set True entries at random positions."""
+    rng = np.random.default_rng(seed)
+    flag = np.zeros(size, bool)
+    flag[rng.choice(size, n_set, replace=False)] = True
+    return flag
+
+
+def assert_acc_close(got, ref, xyz, lab, k, extremes_atol, summation_bound=False):
     """Counts and z extremes exactly; sums to 1e-6 of each cluster's
-    summed magnitude (f32 summation order); u/v extremes to
-    extremes_atol."""
+    summed magnitude (f32 summation order), or with summation_bound to
+    2 n u sum|x| (u = 2**-24: the recursive summation bound of n terms
+    for each of two orders); u/v extremes to extremes_atol."""
     sel = (lab >= 0) & (lab < k)
+    cnt = np.bincount(lab[sel], minlength=k)
     for key in obb_accum.NAMES:
         g, r = np.asarray(got[key]), np.asarray(ref[key])
         assert g.shape == r.shape, key
         if key in ("sx", "sy", "sz"):
             col = "xyz".index(key[1])
             mag = np.bincount(lab[sel], weights=np.abs(xyz[sel, col]), minlength=k)
-            assert (np.abs(g.astype(np.float64) - r) <= 1e-6 * mag + 1e-6).all(), key
+            rel = 2.0 * cnt * 2.0**-24 if summation_bound else 1e-6
+            assert (np.abs(g.astype(np.float64) - r) <= rel * mag + 1e-6).all(), key
         elif key in ("cnt", "zlo", "zhi"):
             np.testing.assert_array_equal(g, r, err_msg=key)
         else:
@@ -185,12 +213,78 @@ def test_obb_accum_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_obb_accumulate_morton_kernel_matches_plain(cuda):
+    k, a = 128, 256
+    hi, lo, lab, mn, xyz = morton_inputs(14, 300_001, k)
+    args = tuple(t(v, cuda) for v in (hi, lo, lab, mn))
+    got = obb_accum.obb_accumulate(*args, max_clusters=k, num_angles=a)
+    ref = obb_accum.obb_accumulate_plain(*args, max_clusters=k, num_angles=a)
+    torch.cuda.synchronize()
+    assert_acc_close({key: n(v) for key, v in got.items()},
+                     {key: n(v) for key, v in ref.items()}, xyz, lab, k, 0.0,
+                     summation_bound=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "size,n_set,m",
+    [(4 << 20, 3500, 4096), (100_003, 4096, 4096), (100_003, 9000, 4096), (7, 0, 3)],
+    ids=["fewer", "exactly-m", "more", "none-set"],
+)
+def test_compact_indices_kernel_matches_plain(cuda, size, n_set, m):
+    flag = t(flag_inputs(15, size, n_set), cuda)
+    got = compactidx.compact_indices(flag, m)
+    ref = compactidx.compact_indices_plain(flag, m)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_fused_extract_step_cuda_matches_cpu(cuda):
+    """The fused fast path on the card equals the CPU run (the plain
+    versions) on a small corridor tile: every _cut exit identical, and the
+    whole step's labels, keep and counts identical (the OBB sums add in
+    another order)."""
+    from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams, GroundParams
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
+    from pointcloudhookup_tpu_torch.ops import frontend_fused
+
+    pts, _ = synthetic_corridor(
+        np.random.default_rng(42), n_ground=4000, n_veg=800, pts_per_tower=400,
+        extent=250.0,
+    )
+    cap = 8192
+    xyz = np.zeros((cap, 3), np.float32)
+    xyz[: len(pts)] = (pts - pts.mean(axis=0)).astype(np.float32)
+    mask = np.arange(cap) < len(pts)
+    params = ExtractParams(
+        ground=GroundParams(min_points_after=100),
+        cluster=ClusterParams(eps=5.0, min_points=30), max_clusters=32, obb_angles=64,
+    )
+    kw = dict(max_cells=2048, min_cell_points=1, geometric_voxels=True, emit="codes",
+              return_cells_overflow=True)
+    for cut in (1, 2, 3, 4, 5, 0):
+        got = frontend_fused.fused_downsample_ground_cluster(
+            t(xyz, cuda), t(mask, cuda), params, _cut=cut, **kw)
+        ref = frontend_fused.fused_downsample_ground_cluster(
+            t(xyz), t(mask), params, _cut=cut, **kw)
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu(), r), cut
+    step_kw = dict(max_cells=2048, min_cell_points=1, geometric_voxels=True)
+    got = frontend_fused.fused_extract_step(t(xyz, cuda), t(mask, cuda), params, **step_kw)
+    ref = frontend_fused.fused_extract_step(t(xyz), t(mask), params, **step_kw)
+    for key in ("labels", "ground_keep", "count", "alive", "accepted", "cells_overflow"):
+        assert torch.equal(got[key].cpu(), ref[key]), key
+    np.testing.assert_allclose(n(got["center"]), n(ref["center"]), atol=1e-3)
+
+
+@pytest.mark.cuda
 def test_exact_extract_graph_cuda_matches_cpu(cuda):
     """Every stage of the exact path on the card equals the CPU run (the
     plain versions, which the CPU suite holds against the JAX package):
     a small corridor tile, stage by stage through _cut and whole."""
-    from pointcloudhookup_tpu.config import ClusterParams, ExtractParams, GroundParams
-    from pointcloudhookup_tpu.io.synthetic import synthetic_corridor
+    from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams, GroundParams
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
     from pointcloudhookup_tpu_torch.ops import frontend_exact
 
     pts, _ = synthetic_corridor(

@@ -1,11 +1,14 @@
-"""The port's five kernels: their plain PyTorch versions (what CPU tensors
-run) against the JAX package's XLA oracles on the same numpy inputs.  The
-hand-written CUDA kernels are held against these plain versions on the
-card by test_torch_cuda.py.
+"""The port's seven kernels: their plain PyTorch versions (what CPU tensors
+run) against the JAX package's Pallas kernels in interpret mode or its XLA
+oracles on the same numpy inputs.  The hand-written CUDA kernels are held
+against these plain versions on the card by test_torch_cuda.py.
 
 Tolerances: integer outputs, pop (integer weights), counts and min/max
 extremes must match exactly; float sums only up to f32 summation order
-(1e-6 of each cluster's summed magnitude)."""
+(1e-6 of each cluster's summed magnitude).  The OBB projection extremes
+u/v agree to 2 ulp of the coordinates: XLA's float32 cos/sin are not
+correctly rounded and differ from torch's by one ulp at some angles (7 of
+256), and XLA:CPU contracts the projection into a fused multiply-add."""
 
 import numpy as np
 import pytest
@@ -13,12 +16,24 @@ import jax.numpy as jnp
 import torch
 
 from pointcloudhookup_tpu.ops.pallas.cluster_converge import cluster_cells_reference
-from pointcloudhookup_tpu.ops.pallas.compactrows import compact_rows_multi_reference
+from pointcloudhookup_tpu.ops.pallas.compactidx import (
+    compact_indices as jax_compact_indices,
+    compact_indices_reference,
+)
+from pointcloudhookup_tpu.ops.pallas.compactrows import (
+    compact_rows_multi_reference,
+    compact_rows_reference,
+)
 from pointcloudhookup_tpu.ops.pallas.neighbor import neighbor_reduce_reference
-from pointcloudhookup_tpu.ops.pallas.obb_accum import obb_accumulate_xyz_reference
+from pointcloudhookup_tpu.ops.pallas.obb_accum import (
+    obb_accumulate as jax_obb_accumulate,
+    obb_accumulate_reference,
+    obb_accumulate_xyz_reference,
+)
 from pointcloudhookup_tpu.ops.segments import segmented_scan as jax_segmented_scan
 from pointcloudhookup_tpu_torch.ops.kernels import (
     cluster_converge,
+    compactidx,
     compactrows,
     neighbor,
     obb_accum,
@@ -29,6 +44,8 @@ from test_torch_cuda import (
     assert_acc_close,
     cells,
     compact_inputs,
+    flag_inputs,
+    morton_inputs,
     n,
     obb_inputs,
     scan_inputs,
@@ -133,3 +150,63 @@ def test_obb_accum_plain_matches_reference(all_noise):
     assert_acc_close({key: n(v) for key, v in got.items()}, ref, xyz, lab, k, 2e-5)
     if all_noise:
         assert (n(got["cnt"]) == 0).all() and (n(got["ulo"]) == BIG).all()
+
+
+@pytest.mark.parametrize("density,cap", [(0.3, 2048), (0.8, 2048)], ids=["fits", "count>cap"])
+def test_compact_rows_morton_plain_matches_reference(density, cap):
+    keep, (hi, lo, _) = compact_inputs(16, 5000, density)
+    ref = compact_rows_reference(jnp.asarray(keep), jnp.asarray(hi), jnp.asarray(lo), cap)
+    got = compactrows.compact_rows(t(keep), t(hi), t(lo), cap)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(n(g), np.asarray(r))
+
+
+@pytest.mark.parametrize("n_set", [3000, 4096, 9000], ids=["fewer", "exactly-m", "more"])
+def test_compact_indices_plain_matches_kernel_interpret(n_set):
+    """Against the Pallas kernel in interpret mode and the XLA oracle (the
+    cumsum + searchsorted it replaced): dead slots hold N - 1."""
+    m = 4096
+    flag = flag_inputs(17, 32768, n_set)
+    got = n(compactidx.compact_indices(t(flag), m))
+    ref = np.asarray(jax_compact_indices(jnp.asarray(flag), m, interpret=True))
+    oracle = np.asarray(compact_indices_reference(jnp.asarray(flag), m))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, oracle)
+    assert got.dtype == np.int32 and (got[n_set:] == 32767).all()
+
+
+def test_obb_accumulate_plain_matches_kernel_interpret():
+    """The Morton variant against the Pallas kernel in interpret mode, which
+    decodes x = ix * vs + (mn + vs/2) with one rounding (XLA:CPU fuses the
+    multiply-add): counts and z extremes identical, sums to the f32
+    summation bound (2 n u sum|x|), u/v extremes to 2 ulp of the
+    coordinates (module docstring)."""
+    k, a = 8, 16
+    hi, lo, lab, mn, xyz = morton_inputs(18, 8192, k)
+    ref = jax_obb_accumulate(
+        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(lab), jnp.asarray(mn),
+        max_clusters=k, num_angles=a, interpret=True,
+    )
+    got = obb_accum.obb_accumulate(t(hi), t(lo), t(lab), t(mn), max_clusters=k, num_angles=a)
+    ulp2 = 2 * float(np.spacing(np.abs(xyz).max()))
+    assert_acc_close({key: n(v) for key, v in got.items()}, ref, xyz, lab, k, ulp2,
+                     summation_bound=True)
+
+
+def test_obb_accumulate_plain_within_an_ulp_of_the_oracle():
+    """The XLA oracle decodes ((ix * vs) + mn) + vs/2 and rounds the
+    coordinates otherwise: every extreme within one ulp of the coordinates
+    (two for the projections), counts identical."""
+    k, a = 8, 16
+    hi, lo, lab, mn, xyz = morton_inputs(19, 4096, k)
+    ref = obb_accumulate_reference(
+        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(lab), jnp.asarray(mn),
+        max_clusters=k, num_angles=a,
+    )
+    got = obb_accum.obb_accumulate(t(hi), t(lo), t(lab), t(mn), max_clusters=k, num_angles=a)
+    ulp = float(np.spacing(np.abs(xyz).max()))
+    np.testing.assert_array_equal(n(got["cnt"]), np.asarray(ref["cnt"]))
+    for key in ("zlo", "zhi"):
+        np.testing.assert_allclose(n(got[key]), np.asarray(ref[key]), rtol=0, atol=ulp)
+    for key in ("ulo", "uhi", "vlo", "vhi"):
+        np.testing.assert_allclose(n(got[key]), np.asarray(ref[key]), rtol=0, atol=2 * ulp)

@@ -1,26 +1,35 @@
 """The port's host-side and tensor helpers against their JAX counterparts
-on the same numpy inputs: Morton keys, the bisection percentile, label
-compaction, stable row compaction, the OBB finisher, the tower filters,
-the state converters, and the import boundary (the port never imports
-jax)."""
+on the same numpy inputs: Morton keys, both percentiles, label compaction,
+stable row compaction, the OBB finisher, the tower filters, the state
+converters and the parameter carrier, the host copies (config, LAS/LAZ
+I/O, the synthetic corridor), and the import boundary (the port imports
+nothing of jax or of the JAX package)."""
 
+import dataclasses
 import os
 import subprocess
 import sys
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
+from pointcloudhookup_tpu import config as jconfig
 from pointcloudhookup_tpu.config import TowerFilterParams
+from pointcloudhookup_tpu.io import las as jlas
+from pointcloudhookup_tpu.io import synthetic as jsynthetic
 from pointcloudhookup_tpu.models import towers as jtowers
 from pointcloudhookup_tpu.ops import cluster as jcluster
 from pointcloudhookup_tpu.ops import morton as jmorton
 from pointcloudhookup_tpu.ops import obb as jobb
 from pointcloudhookup_tpu.ops import percentile as jpct
 from pointcloudhookup_tpu.ops.pallas.obb_accum import obb_accumulate_xyz_reference
+from pointcloudhookup_tpu_torch import config as tconfig
 from pointcloudhookup_tpu_torch import state
+from pointcloudhookup_tpu_torch.io import las as tlas
+from pointcloudhookup_tpu_torch.io import synthetic as tsynthetic
 from pointcloudhookup_tpu_torch.models import towers as ttowers
 from pointcloudhookup_tpu_torch.ops import cluster as tcluster
 from pointcloudhookup_tpu_torch.ops import morton as tmorton
@@ -210,20 +219,159 @@ def test_state_roundtrip_dtypes():
 
 
 def test_port_never_imports_jax():
+    """In a fresh interpreter, importing every module of the port and
+    chip_smoke loads no jax* module and no module of the JAX package."""
     code = (
-        "import sys\n"
-        "import pointcloudhookup_tpu_torch.__main__\n"
-        "import pointcloudhookup_tpu_torch.models.pipeline\n"
-        "import pointcloudhookup_tpu_torch.ops.frontend_exact\n"
-        "import pointcloudhookup_tpu_torch.state\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m.startswith('jaxlib'))\n"
+        "import importlib, pkgutil, sys\n"
+        "import pointcloudhookup_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "assert len(names) > 20, names\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'pointcloudhookup_tpu'))\n"
         "assert not bad, bad\n"
-        "print('ok')\n"
+        "print('ok', len(names))\n"
     )
     res = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
         timeout=120, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     )
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "ok"
+    assert res.stdout.startswith("ok")
+
+
+def _morton_axes(seed, size):
+    rng = np.random.default_rng(seed)
+    # beyond 20 bits and negative values exercise the clip
+    return [rng.integers(-5, (1 << 20) + 5, size).astype(np.int32) for _ in range(3)]
+
+
+def test_morton_encode_decode_shift_match_jax():
+    ijk = _morton_axes(20, 5000)
+    ref = jmorton.morton_encode(*map(jnp.asarray, ijk))
+    got = tmorton.morton_encode(*map(torch.from_numpy, ijk))
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(_n(g), np.asarray(r))
+    for g, r in zip(tmorton.morton_decode(*got), jmorton.morton_decode(*ref)):
+        np.testing.assert_array_equal(_n(g), np.asarray(r))
+    # the sentinel word decodes through the same arithmetic shifts
+    hi = torch.full((4,), tmorton.SENTINEL_HI, dtype=torch.int32)
+    for g, r in zip(tmorton.morton_decode(hi, got[1][:4]),
+                    jmorton.morton_decode(jnp.asarray(_n(hi)), ref[1][:4])):
+        np.testing.assert_array_equal(_n(g), np.asarray(r))
+    for shift in (0, 6, 15, 30):
+        for g, r in zip(tmorton.shift_code(*got, shift), jmorton.shift_code(*ref, shift)):
+            np.testing.assert_array_equal(_n(g), np.asarray(r))
+    # one int64 key (hi << 30) | lo orders as the two-word lexicographic sort
+    key = (got[0].long() << 30) | got[1].long()
+    np.testing.assert_array_equal(
+        _n(torch.argsort(key, stable=True)), np.lexsort((_n(got[1]), _n(got[0])))
+    )
+
+
+def test_fma_f32_rounds_once():
+    """fma_f32 equals an exact fused multiply-add (long double) on voxel
+    decodes, and differs from the twice-rounded product + sum."""
+    rng = np.random.default_rng(21)
+    a = (rng.integers(0, 1 << 20, 100_000) + 0.5).astype(np.float32)
+    vs, mn = np.float32(0.1), np.float32(-5.1)
+    got = _n(tmorton.fma_f32(torch.from_numpy(a), torch.tensor(vs), torch.tensor(mn)))
+    exact = (a.astype(np.longdouble) * vs + mn).astype(np.float32)
+    np.testing.assert_array_equal(got, exact)
+    assert (got != a * vs + mn).any()
+
+
+def test_masked_percentile_bit_identical():
+    """Bit-identical to the JAX function under jit, where XLA:CPU contracts
+    the lerp into a fused multiply-add (as inside the fused front-end's
+    graph).  The extra cases include lerps that the contraction rounds
+    differently from the op-by-op JAX call, so the check tells them apart."""
+    jf = jax.jit(jpct.masked_percentile, static_argnums=2)
+    rng = np.random.default_rng(0)
+    extra = []
+    for _ in range(40):
+        n = int(rng.integers(2, 300))
+        x = rng.normal(scale=100, size=n).astype(np.float32)
+        mask = rng.random(n) < 0.8
+        mask[0] = True
+        extra.append((x, mask, float(rng.uniform(0, 100))))
+    rounds_differ = False
+    for x, mask, q in [*_pct_cases(), *extra]:
+        got = tpct.masked_percentile(torch.from_numpy(x), torch.from_numpy(mask), q)
+        ref = jf(jnp.asarray(x), jnp.asarray(mask), q)
+        assert got.dtype == torch.float32 and got.dim() == 0
+        assert np.float32(_n(got)) == np.float32(np.asarray(ref)), q
+        eager = jpct.masked_percentile(jnp.asarray(x), jnp.asarray(mask), q)
+        rounds_differ |= bool(np.float32(np.asarray(eager)) != np.float32(_n(got)))
+    assert rounds_differ
+
+
+@pytest.mark.parametrize(
+    "jparams",
+    [
+        jconfig.ExtractParams(),
+        jconfig.ExtractParams(
+            ground=jconfig.GroundParams(percentile=20.0, min_points_after=10),
+            cluster=jconfig.ClusterParams(eps=5.0, min_points=30, method="grid",
+                                          max_cells=4096, min_cluster_size=7),
+            filters=jconfig.TowerFilterParams(min_width=6.0),
+            max_clusters=64, obb_angles=64,
+        ),
+    ],
+    ids=["defaults", "custom"],
+)
+def test_extract_params_carried_across(jparams):
+    """The port's config is a copy: the same dataclasses, fields and
+    defaults, and state.extract_params_from_dict carries a JAX tree over
+    field for field."""
+    for name in ("VoxelParams", "GroundParams", "ClusterParams", "TowerFilterParams",
+                 "ExtractParams", "MatchParams"):
+        jcls, tcls = getattr(jconfig, name), getattr(tconfig, name)
+        assert dataclasses.asdict(jcls()) == dataclasses.asdict(tcls()), name
+        assert [f.name for f in dataclasses.fields(jcls)] == [
+            f.name for f in dataclasses.fields(tcls)
+        ], name
+    got = state.extract_params_from_dict(dataclasses.asdict(jparams))
+    assert isinstance(got, tconfig.ExtractParams)
+    assert isinstance(got.cluster, tconfig.ClusterParams)
+    assert dataclasses.asdict(got) == dataclasses.asdict(jparams)
+    with pytest.raises(TypeError):
+        state.extract_params_from_dict(dict(dataclasses.asdict(jparams), extra=1))
+
+
+def test_synthetic_corridor_is_a_copy():
+    kw = dict(n_ground=3000, n_veg=500, pts_per_tower=200, extent=250.0, n_line=50)
+    got = tsynthetic.synthetic_corridor(np.random.default_rng(4), **kw)
+    ref = jsynthetic.synthetic_corridor(np.random.default_rng(4), **kw)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.parametrize("fmt", [0, 1, 6], ids=["fmt0", "fmt1", "fmt6"])
+def test_las_and_laz_read_write_match_jax(tmp_path, fmt):
+    """LAS written by either package is byte-identical and reads back the
+    same; a LAZ file written by the JAX package decodes through the port's
+    copied codec to the JAX reader's records."""
+    from pointcloudhookup_tpu.io.laz import write_laz
+
+    pts, _ = tsynthetic.synthetic_corridor(
+        np.random.default_rng(5), n_ground=2000, n_veg=300, pts_per_tower=100,
+        extent=200.0, origin=(5e5, 3e6, 40.0),
+    )
+    a, b = tmp_path / "port.las", tmp_path / "jax.las"
+    tlas.write_las(tlas.make_las(pts, point_format=fmt), str(a))
+    jlas.write_las(jlas.make_las(pts, point_format=fmt), str(b))
+    assert a.read_bytes() == b.read_bytes()
+    assert tlas.peek_point_count(str(a)) == len(pts)
+    got, ref = tlas.read_las(str(a)), jlas.read_las(str(b))
+    np.testing.assert_array_equal(got.points, ref.points)
+    np.testing.assert_array_equal(got.xyz(), ref.xyz())
+    laz = tmp_path / "tile.laz"
+    write_laz(jlas.make_las(pts, point_format=fmt), str(laz))
+    got, ref = tlas.read_las(str(laz)), jlas.read_las(str(laz))
+    assert (got.point_format, got.version, got.num_vlrs) == (
+        ref.point_format, ref.version, ref.num_vlrs
+    )
+    np.testing.assert_array_equal(got.points, ref.points)
