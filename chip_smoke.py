@@ -25,9 +25,18 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      on overflow): 24/24 accepted, no overflow, ms per iteration by CUDA
      events; once more without the pre-cut, which packs the cell table
      with compact_indices;
-  6. checks that the fast path on a 131,072-row pre-cut tile gives the
-     same labels, keep, counts and accepted towers on the GPU as through
-     the plain versions on the CPU, and tower centres within 1 mm;
+  7. the fused front-end's other sort modes in bench.py's configuration
+     without the pre-cut (the reference pre-cuts only in sort_mode
+     "full"): "cell" with the tile's tight cell_sort_plan (dupwin, depth
+     16), "cell" without a plan (dupwin, depth 64), "hier" (winsort,
+     W 256) and "merge" (mergesort): 24/24 accepted, cells_over 0,
+     hier_runs_over printed, ms per iteration by CUDA events beside "full"
+     without the pre-cut, and the mode's kernel launched;
+  6. checks that the fast path on a 131,072-row tile gives the same
+     labels, keep, counts and accepted towers on the GPU as through the
+     plain versions on the CPU, and tower centres within 1 mm: pre-cut
+     "full", each sort mode of phase 7, the sort-based OBB and centroid
+     voxels;
   3. runs each kernel and its plain PyTorch version on the same device
      tensors at the shapes the paths give it, requires agreement (integer
      outputs, pop, counts and extremes identical; OBB sums within the f32
@@ -35,8 +44,8 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      kernel's bound (the larger of its bytes over 3.35 TB/s and its float32
      operations over 67 TFLOP/s, counted from this run's inputs).
 
-Launch counts are reset just before each path's run (1, 4, 5) and read
-just after.  Prints the card's name and power limit, one JSON line of
+Launch counts are reset just before each path's run (1, 4, 5, each mode of
+7) and read just after.  Prints the card's name and power limit, one JSON line of
 per-kernel results, and as its last line {"ok": true, "device": {...}}.
 Any failure raises: the exit code is non-zero and the last line is not
 printed.  It imports nothing of JAX or of the JAX package.
@@ -79,10 +88,21 @@ KERNELS = {
                        ("obb_accum", "launches_morton")),
     "compact_indices": ("compactidx.cu", "pointcloudhookup_tpu/ops/pallas/compactidx.py:122",
                         ("compactidx", "launches")),
+    "dupwin": ("dupwin.cu", "pointcloudhookup_tpu/ops/pallas/dupwin.py:70",
+               ("dupwin", "launches")),
+    "winsort": ("winsort.cu", "pointcloudhookup_tpu/ops/pallas/winsort.py:169",
+                ("winsort", "launches")),
+    "mergesort": ("mergesort.cu", "pointcloudhookup_tpu/ops/pallas/mergesort.py:284",
+                  ("mergesort", "launches")),
 }
 EXACT_PATH = ("compactrows", "segscan", "neighbor", "cluster_converge", "obb_accum")
 FAST_PATH = ("compactrows", "segscan", "cluster_converge", "obb_accumulate")
 BENCH_PATH = FAST_PATH + ("compact_indices",)
+# phase 7: the bench configuration without the pre-cut packs its cell table
+# with compact_indices; each sort mode adds its own kernel
+SORT_PATH = ("segscan", "cluster_converge", "obb_accumulate", "compact_indices")
+SORT_KERNEL = {"cell": "dupwin", "cell_untight": "dupwin", "hier": "winsort",
+               "merge": "mergesort"}
 
 
 def corridor_tile(n: int, seed: int):
@@ -202,9 +222,12 @@ def main() -> int:
         cluster_converge,
         compactidx,
         compactrows,
+        dupwin,
+        mergesort,
         neighbor,
         obb_accum,
         segscan,
+        winsort,
     )
     from pointcloudhookup_tpu_torch.ops.morton import morton_decode
     from pointcloudhookup_tpu_torch.ops.obb import (
@@ -377,6 +400,55 @@ def main() -> int:
     for name, ms in profile["top"]:
         print(f"  {ms:8.3f}  {name[:110]}")
 
+    # ---- 7. the other sort modes in the bench configuration, no pre-cut
+    span = xyz_np.max(axis=0) - xyz_np.min(axis=0)
+    sort_plan = frontend_fused.cell_sort_plan(span, eps=params.cluster.eps)
+    eligible = frontend_fused.hier_sort_eligible(span)
+    print(f"bench tile span {span.tolist()}: cell_sort_plan {sort_plan}, hier eligible {eligible}, "
+          f"merge eligible {mergesort.merge_sort_eligible(N_POINTS)}")
+    if sort_plan is None or not eligible or not mergesort.merge_sort_eligible(N_POINTS):
+        raise AssertionError("the bench tile must be eligible for every sort mode")
+    modes = {"cell": dict(sort_mode="cell", cell_plan=sort_plan),
+             "cell_untight": dict(sort_mode="cell"),
+             "hier": dict(sort_mode="hier"),
+             "merge": dict(sort_mode="merge")}
+
+    def mode_iter(kw):
+        hi, lo, keep, labels, base, mn, over, hier_over = (
+            frontend_fused.fused_downsample_ground_cluster(
+                xyz_b, mask_b, params, precut_div=0, return_cells_overflow=True,
+                **bench_kw, **kw))
+        stats = cluster_obb_stats_accum(
+            hi, lo, labels, keep, mn, max_clusters=params.max_clusters,
+            num_angles=params.obb_angles,
+        )
+        return filter_and_dedup(stats, params.filters), over, hier_over
+
+    sort_modes = {"full": dict(ms=[timed(lambda: bench_iter(0), BENCH_ITERS)[0]])}
+    for name, kw in modes.items():
+        reset_counts()
+        mode_iter(kw)
+        torch.cuda.synchronize()
+        launches[f"sort_{name}"] = read_counts(SORT_PATH + (SORT_KERNEL[name],),
+                                               f"sort_mode {name}")
+        ms, (accepted, over, hier_over) = timed(lambda kw=kw: mode_iter(kw), BENCH_ITERS)
+        found = int(accepted.sum())
+        prof = profile_iteration(lambda kw=kw: mode_iter(kw), top=0)
+        sort_modes[name] = dict(ms=ms, towers=found, cells_over=float(over),
+                                hier_runs_over=float(hier_over), device_ms=prof["device_ms"],
+                                idle_share=prof["idle_share"])
+        print(f"sort_mode {name}: {ms:.3f} ms/iteration, {found}/{len(centers)} accepted, "
+              f"cells_over {float(over)}, hier_runs_over {float(hier_over)}; one profiled "
+              f"iteration: device busy {prof['device_ms']} ms, idle share {prof['idle_share']}")
+        if found != len(centers) or float(over) != 0.0:
+            raise AssertionError(f"sort_mode {name}: {found} towers, cells_over {float(over)}")
+    sort_modes["full"]["ms"].append(timed(lambda: bench_iter(0), BENCH_ITERS)[0])
+    prof = profile_iteration(lambda: bench_iter(0), top=0)
+    sort_modes["full"].update(device_ms=prof["device_ms"], idle_share=prof["idle_share"])
+    print(f"sort_mode full (no pre-cut), before and after the modes: "
+          f"{sort_modes['full']['ms']} ms/iteration; one profiled iteration: device busy "
+          f"{prof['device_ms']} ms, idle share {prof['idle_share']}")
+
     # ---- 6. 131,072-row pre-cut tile: GPU vs the plain versions on the CPU
     n6 = 131072
     xs6 = np.linspace(-400, 400, 6)
@@ -388,19 +460,28 @@ def main() -> int:
     xyz6, mask6 = padded(pts6[:n6], n6)
     p6 = ExtractParams(max_clusters=64)
     kw6 = dict(max_cells=2048, min_cell_points=3, geometric_voxels=True, precut_div=4)
-    out_g = frontend_fused.fused_extract_step(
-        torch.from_numpy(xyz6).to(dev), torch.from_numpy(mask6).to(dev), p6, **kw6)
-    out_c = frontend_fused.fused_extract_step(
-        torch.from_numpy(xyz6), torch.from_numpy(mask6), p6, **kw6)
-    for key in ("labels", "ground_keep", "count", "accepted"):
-        if not torch.equal(out_g[key].cpu(), out_c[key]):
-            raise AssertionError(f"pre-cut tile: GPU and CPU differ in {key}")
-    acc6 = out_c["accepted"]
-    d6 = (out_g["center"].cpu() - out_c["center"])[acc6].abs()
-    if d6.numel() and float(d6.max()) > 1e-3:
-        raise AssertionError("pre-cut tile: tower centres differ by > 1 mm")
-    print(f"pre-cut tile ({n6} rows, capacity {out_c['labels'].shape[0]}): GPU == CPU "
-          f"plain versions ({int(acc6.sum())} towers)")
+    plan6 = frontend_fused.cell_sort_plan(np.ptp(pts6[:n6], axis=0), eps=p6.cluster.eps)
+    variants6 = {"full, pre-cut /4": {}, "cell": dict(sort_mode="cell", cell_plan=plan6),
+                 "cell_untight": dict(sort_mode="cell"), "hier": dict(sort_mode="hier"),
+                 "merge": dict(sort_mode="merge"), "obb sort": dict(obb="sort"),
+                 "centroid voxels": dict(geometric_voxels=False)}
+    for label, extra in variants6.items():
+        kwv = dict(kw6, **extra)
+        out_g = frontend_fused.fused_extract_step(
+            torch.from_numpy(xyz6).to(dev), torch.from_numpy(mask6).to(dev), p6, **kwv)
+        out_c = frontend_fused.fused_extract_step(
+            torch.from_numpy(xyz6), torch.from_numpy(mask6), p6, **kwv)
+        for key in ("labels", "ground_keep", "count", "accepted"):
+            if not torch.equal(out_g[key].cpu(), out_c[key]):
+                raise AssertionError(f"131,072-row tile, {label}: GPU and CPU differ in {key}")
+        acc6 = out_c["accepted"]
+        d6 = (out_g["center"].cpu() - out_c["center"])[acc6].abs()
+        if d6.numel() and float(d6.max()) > 1e-3:
+            raise AssertionError(f"131,072-row tile, {label}: tower centres differ by > 1 mm")
+        print(f"131,072-row tile, {label} ({out_c['labels'].shape[0]} rows after the front "
+              f"end's cut, hier_runs_over {float(out_c['hier_runs_over'])}): GPU == CPU plain "
+              f"versions ({int(acc6.sum())} towers, centres within "
+              f"{float(d6.max()) if d6.numel() else 0.0} m)")
 
     # ---- 3. each kernel vs its plain version at the paths' shapes.
     # Exact path: inputs as extract_from_points pads them; capacities as
@@ -562,7 +643,7 @@ def main() -> int:
     # fast path, bench configuration: the pre-cut compaction of the Morton
     # words, the OBB accumulation over the settled run's rows, and the
     # cell-table pack of the run without pre-cut (compact_indices)
-    hi0, lo0, _ = frontend_fused.morton_keys(xyz_b, mask_b)
+    hi0, lo0, _, v_b = frontend_fused.morton_keys(xyz_b, mask_b)
     thresh, _ = frontend_fused.precut_threshold(xyz_b, mask_b, params)
     keep_pre = mask_b & (xyz_b[:, 2] > thresh)
     pcap = -(-(N_POINTS // precut_div) // 32768) * 32768
@@ -595,6 +676,59 @@ def main() -> int:
          exact("compact_indices"), nbytes=N_POINTS + 4 * mc,
          library_fn=lambda: torch.nonzero(dense_start))
 
+    # sort-mode kernels on the bench tile's keys: dupwin on the tight key
+    # (depth 16) and on the cell key (depth 64), winsort on the hier keys,
+    # mergesort on the Morton words, and at block 2,048 on adversarial pairs
+    cs = frontend_fused._effective_cell_shift(params.cluster.eps, 0.1, 5)
+    ksort, _, _, w_low = frontend_fused.tight_cell_key(v_b, hi0, lo0, mask_b, sort_plan, cs)
+    k1, w16 = frontend_fused.cell_key(hi0, lo0, mask_b, 3 * cs)
+    for label, key, wv, depth in ((f"tight key, depth {sort_plan[4]}", ksort, w_low, sort_plan[4]),
+                                  ("cell key, depth 64", k1, w16, 64)):
+        case("dupwin", f"{label}, rows {N_POINTS}",
+             lambda key=key, wv=wv, d=depth: dupwin.first_occurrence_flags(key, wv, d),
+             lambda key=key, wv=wv, d=depth: dupwin.first_occurrence_flags_plain(key, wv, d),
+             exact("dupwin"), nbytes=N_POINTS * (8 + 4 + 1))
+    keys0 = winsort.packed_windows(k1, w16, 256)
+    keys_mid = keys0[128:-128]
+    case("winsort", f"hier keys, rows {N_POINTS}, W 256",
+         lambda: winsort.window_sort_w(k1, w16, 256),
+         lambda: winsort.window_sort_w_plain(k1, w16, 256),
+         exact("winsort"), nbytes=N_POINTS * (8 + 4 + 4),
+         library_fn=lambda: (keys0.view(-1, 256).sort(dim=1), keys_mid.view(-1, 256).sort(dim=1)))
+    packed = (hi0.to(torch.int64) << 30) | lo0.to(torch.int64)
+    # the wrapper's parts: the blocked torch.sort and the merge rounds
+    blocked = mergesort.pack(hi0, lo0).view(-1, 8192).sort(dim=1).values.reshape(-1)
+    scratch = torch.empty_like(blocked)
+    blocked_ms = timed(lambda: mergesort.pack(hi0, lo0).view(-1, 8192).sort(dim=1), 5)[0]
+    rounds_ms = timed(lambda: mergesort.merge_rounds(blocked.clone(), scratch, 8192), 5)[0]
+    clone_ms = timed(lambda: blocked.clone(), 5)[0]
+    mergesort_parts = dict(blocked_sort_ms=blocked_ms, merge_rounds_ms=rounds_ms - clone_ms)
+    print(f"mergesort at {N_POINTS} rows: blocked sort (pack + [512, 8192] torch.sort) "
+          f"{blocked_ms:.3f} ms, 9 merge rounds {rounds_ms - clone_ms:.3f} ms")
+    case("mergesort", f"Morton (hi, lo)[{N_POINTS}], block 8192",
+         lambda: mergesort.merge_sort_2key(hi0, lo0),
+         lambda: mergesort.merge_sort_2key_plain(hi0, lo0),
+         exact("mergesort"), nbytes=N_POINTS * 16, library_fn=lambda: torch.sort(packed))
+    rng3 = np.random.default_rng(3)
+    na = 1 << 20
+    half = np.arange(na // 2)
+    adversarial = {
+        "all equal": (np.full(na, 5), np.full(na, 9)),
+        "reversed": (np.arange(na, 0, -1), np.zeros(na)),
+        "80 % sentinel": (np.where(rng3.random(na) < 0.8, 0x7FFFFFFF,
+                                   rng3.integers(0, 1 << 30, na)), rng3.integers(0, 1 << 30, na)),
+        "skewed co-ranks": (np.concatenate([1000000 + half, half]), np.zeros(na)),
+    }
+    for label, (h, l) in adversarial.items():
+        h = torch.from_numpy(h.astype(np.int32)).to(dev)
+        l = torch.from_numpy(l.astype(np.int32)).to(dev)
+        packed = mergesort.pack(h, l)
+        case("mergesort", f"{label}, rows {na}, block 2048",
+             lambda h=h, l=l: mergesort.merge_sort_2key(h, l, block=2048),
+             lambda h=h, l=l: mergesort.merge_sort_2key_plain(h, l),
+             exact("mergesort"), nbytes=na * 16,
+             library_fn=lambda packed=packed: torch.sort(packed))
+
     entries = []
     for name, (source, replaces, _) in KERNELS.items():
         cases = results[name]
@@ -620,6 +754,7 @@ def main() -> int:
         card=smi, build_s=build_s, extract_ms=walls[1], extract_first_ms=walls[0],
         resolver_fast_ms=resolver_ms, resolver_info=info,
         bench_precut_div=precut_div, bench=bench, bench_profile=profile,
+        sort_modes=sort_modes, mergesort_parts=mergesort_parts,
     )))
     print(json.dumps(dict(kernels=entries)))
     print(json.dumps(dict(

@@ -2,11 +2,15 @@
 
 Counterpart of ``pointcloudhookup_tpu/ops/obb.py``: the stable compaction
 helper, the sort-free accumulator path of the fused front-end
-(``cluster_obb_accumulators``, ``cluster_obb_stats_accum``) and the
+(``cluster_obb_accumulators``, ``cluster_obb_stats_accum``) with the
 finisher that turns the OBB accumulators (``ops/kernels/obb_accum.py``)
-into per-cluster stats.  Towers are
-gravity-aligned, so the box is the minimum-AREA rectangle of the XY
-footprint over a flat grid of A angles, extruded over the z extent.
+into per-cluster stats, and the sort-based path (``cluster_obb_stats``,
+``cluster_obb_stats_codes``): members sorted by label, densified into a
+[K, P] tensor and searched over a coarse and a refined angle grid.
+Towers are gravity-aligned, so the box is the minimum-AREA rectangle of
+the XY footprint, extruded over the z extent.  The label sorts are stable
+(the reference's leave the order of a cluster's members unspecified, which
+only moves the centroid sums within f32 summation order).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import math
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels.obb_accum import obb_accumulate
+from pointcloudhookup_tpu_torch.ops.morton import fma_f32, morton_decode
 
 _BIG = 3.0e38
 
@@ -136,4 +141,141 @@ def _finalize_obb_stats(
         aabb_min=torch.where(alive[:, None], aabb_min, _BIG),
         aabb_max=torch.where(alive[:, None], aabb_max, -_BIG),
         overflow=overflow,
+    )
+
+
+def cluster_obb_stats(xyz, labels, mask, *, max_clusters: int = 128,
+                      num_angles: int = 256, angle_tile: int = 32,
+                      per_cluster_cap: int = 16384):
+    """Per-cluster gravity-aligned OBB stats of float32[N,3] points with
+    labels int32[N] in [0, K) or -1 and mask bool[N]: members sorted by
+    label (coordinates riding along), densified into [K, P] with
+    P = min(per_cluster_cap, N), and the coarse + refined angle search.
+    'overflow' counts members beyond P."""
+    n = xyz.shape[0]
+    k = max_clusters
+    valid = (labels >= 0) & (labels < k) & mask
+    lab = torch.where(valid, labels, k).to(torch.int32)
+    lab_s, perm = torch.sort(lab, stable=True)
+    gx, gy, gz, member, counts, alive, overflow = _densify_runs(
+        lab_s, tuple(xyz[perm, a] for a in range(3)), k, min(per_cluster_cap, n)
+    )
+    return _obb_from_members(gx, gy, gz, member, counts, alive, overflow, k,
+                             num_angles=num_angles, angle_tile=angle_tile)
+
+
+def cluster_obb_stats_codes(hi, lo, labels, mask, mn, *, voxel_size: float = 0.1,
+                            max_clusters: int = 128, num_angles: int = 256,
+                            angle_tile: int = 32, per_cluster_cap: int = 16384,
+                            points_cap: int | None = None, offset=None):
+    """cluster_obb_stats over Morton-coded voxel rows (hi/lo int32[N], grid
+    origin mn float32[3]): sorts (label, hi, lo) and decodes the geometric
+    voxel centres on the [K, P] member tensor only, ``ix * vs + offset``
+    rounded once (XLA:CPU contracts it into a fused multiply-add).  offset
+    float32[3] defaults to ``mn + vs/2``; the fused step passes the one its
+    reference rounds (``ops/frontend_fused.py::voxel_centre_offset``).
+    points_cap first compacts the labelled rows to that capacity; rows
+    beyond it are counted in 'overflow'."""
+    n = hi.shape[0]
+    k = max_clusters
+    valid = (labels >= 0) & (labels < k) & mask
+    lab = torch.where(valid, labels, k).to(torch.int32)
+    cap_over = torch.zeros((), dtype=torch.float32, device=hi.device)
+    if points_cap is not None and points_cap < n:
+        (lab, hi, lo), _, cap_over = _compact_valid_rows(
+            valid, (lab, hi, lo), points_cap, fill=k
+        )
+        n = points_cap
+    lab_s, perm = torch.sort(lab, stable=True)
+    gh, gl, member, counts, alive, overflow = _densify_runs(
+        lab_s, (hi[perm], lo[perm]), k, min(per_cluster_cap, n)
+    )
+    vs = torch.tensor(voxel_size, dtype=torch.float32, device=hi.device)
+    if offset is None:
+        offset = mn + vs * 0.5
+    gx, gy, gz = (fma_f32(i.to(torch.float32), vs, offset[a])
+                  for a, i in enumerate(morton_decode(gh, gl)))
+    return _obb_from_members(gx, gy, gz, member, counts, alive, overflow + cap_over, k,
+                             num_angles=num_angles, angle_tile=angle_tile)
+
+
+def _densify_runs(lab_s, payloads, k: int, p: int):
+    """Label-sorted rows -> per-cluster [K, P] member tensors: cluster c is
+    the run [left_c, right_c) and is read from the P rows at
+    min(left_c, N - P).  Returns (*payloads[K, P], member bool[K, P],
+    counts float32[K], alive bool[K], overflow float32)."""
+    n = lab_s.shape[0]
+    dev = lab_s.device
+    ar = torch.arange(k, dtype=lab_s.dtype, device=dev)
+    lefts = torch.searchsorted(lab_s, ar, side="left")
+    rights = torch.searchsorted(lab_s, ar, side="right")
+    counts_i = rights - lefts
+    overflow = torch.clamp(counts_i - p, min=0).to(torch.float32).sum()
+    starts = torch.clamp(lefts, max=n - p)
+    pos = starts[:, None] + torch.arange(p, device=dev)[None, :]
+    member = (pos >= lefts[:, None]) & (pos < rights[:, None])
+    return (*(v[pos] for v in payloads), member, counts_i.to(torch.float32),
+            counts_i > 0, overflow)
+
+
+def _obb_from_members(gx, gy, gz, member, counts, alive, overflow, k: int, *,
+                      num_angles: int, angle_tile: int):
+    """Stats from dense [K, P] members: centroids, then the min-area XY
+    rectangle by a coarse pass over min(2 * angle_tile, A, 32) angles in
+    [0, pi/2) and a 17-sample refinement within one coarse step around
+    each cluster's winner."""
+    if num_angles % angle_tile:
+        raise ValueError("num_angles must be a multiple of angle_tile")
+    dev = gx.device
+    f32 = torch.float32
+    ar = torch.arange(k, device=dev)
+    mw = member.to(f32)
+    denom = torch.clamp(mw.sum(dim=1), min=1.0)
+    centroid = torch.stack([(g * mw).sum(dim=1) / denom for g in (gx, gy, gz)], dim=1)
+    centroid = torch.where(alive[:, None], centroid, 0.0)
+
+    coarse = min(angle_tile * 2, num_angles, 32)
+    refine = 17  # odd: the centre sample is the coarse winner itself
+    step = math.pi / 2.0 / coarse
+    mk = member[:, :, None]
+
+    def rect_stats(angles):  # [K, A] per cluster -> extents and sums
+        cos_a = torch.cos(angles)[:, None, :]
+        sin_a = torch.sin(angles)[:, None, :]
+        pu = gx[:, :, None] * cos_a + gy[:, :, None] * sin_a  # [K, P, A]
+        pv = -gx[:, :, None] * sin_a + gy[:, :, None] * cos_a
+        pu_hi = torch.where(mk, pu, -_BIG).amax(dim=1)
+        pu_lo = torch.where(mk, pu, _BIG).amin(dim=1)
+        pv_hi = torch.where(mk, pv, -_BIG).amax(dim=1)
+        pv_lo = torch.where(mk, pv, _BIG).amin(dim=1)
+        return pu_hi - pu_lo, pv_hi - pv_lo, pu_hi + pu_lo, pv_hi + pv_lo
+
+    step_t = torch.tensor(step, dtype=f32, device=dev)
+    a1 = torch.arange(coarse, dtype=f32, device=dev) * step_t
+    eu1, ev1, _, _ = rect_stats(a1[None, :].expand(k, coarse))
+    theta1 = torch.argmin(eu1 * ev1, dim=1).to(f32) * step_t
+    half = refine // 2
+    deltas = (torch.arange(refine, dtype=f32, device=dev) - half) * torch.tensor(
+        step / half, dtype=f32, device=dev)
+    a2 = theta1[:, None] + deltas[None, :]  # [K, refine]
+    eu, ev, su, sv = rect_stats(a2)
+    best = torch.argmin(eu * ev, dim=1)
+    eu_b = eu[ar, best]
+    ev_b = ev[ar, best]
+    cu = su[ar, best] * 0.5
+    cv = sv[ar, best] * 0.5
+    theta = a2[ar, best]
+    u_vec = torch.stack([torch.cos(theta), torch.sin(theta)], dim=1)
+    v_vec = torch.stack([-torch.sin(theta), torch.cos(theta)], dim=1)
+    center_xy = cu[:, None] * u_vec + cv[:, None] * v_vec
+
+    # axis-aligned bounds over the member tensor (z is the height extent)
+    def lo_hi(g):
+        return (torch.where(member, g, _BIG).amin(dim=1),
+                torch.where(member, g, -_BIG).amax(dim=1))
+
+    (x_lo, x_hi), (y_lo, y_hi), (z_lo, z_hi) = lo_hi(gx), lo_hi(gy), lo_hi(gz)
+    return _finalize_obb_stats(
+        counts, alive, centroid, center_xy, theta, u_vec, v_vec, eu_b, ev_b,
+        x_lo, x_hi, y_lo, y_hi, z_lo, z_hi, k, overflow,
     )

@@ -18,9 +18,12 @@ from pointcloudhookup_tpu_torch.ops.kernels import (
     cluster_converge,
     compactidx,
     compactrows,
+    dupwin,
+    mergesort,
     neighbor,
     obb_accum,
     segscan,
+    winsort,
 )
 
 # ------------------------------------------------------------------
@@ -96,6 +99,38 @@ def morton_inputs(seed, size, k, span=3000):
     # the voxel centres, for the summation bound of assert_acc_close
     xyz = np.stack([v.numpy() for v in morton_decode(hi, lo)], 1) * vs + mn + vs / 2
     return n(hi), n(lo), lab.astype(np.int32), mn, xyz.astype(np.float32)
+
+
+def key_runs(seed, size, max_run):
+    """Sorted u32 keys (int64) in runs of 1..max_run rows, and the rng."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, max_run + 1, size)
+    lens = lens[: np.searchsorted(np.cumsum(lens), size) + 1]
+    k1 = np.repeat(np.cumsum(rng.integers(1, 5, len(lens))), lens)[:size]
+    return k1.astype(np.int64), rng
+
+
+def merge_inputs(seed, size, kind):
+    """(hi, lo) int32 pairs: random, all equal, reversed, 80 % sentinel
+    rows, or two runs wholly below / above each other (skewed co-ranks)."""
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(0, 1 << 30, size).astype(np.int32)
+    lo = rng.integers(0, 1 << 30, size).astype(np.int32)
+    if kind == "all-equal":
+        hi[:], lo[:] = 5, 9
+    elif kind == "reversed":
+        hi, lo = np.arange(size, 0, -1, dtype=np.int32), np.zeros(size, np.int32)
+    elif kind == "sentinel-heavy":
+        hi[rng.random(size) < 0.8] = 0x7FFFFFFF
+    elif kind == "skewed":
+        half = np.arange(size // 2)
+        hi = np.concatenate([1000000 + half, half]).astype(np.int32)
+        lo = np.zeros(size, np.int32)
+    elif kind == "negative":
+        hi = rng.integers(-2**31, 2**31, size).astype(np.int32)
+        lo = rng.integers(-2**31, 2**31, size).astype(np.int32)
+        hi[::3] = hi[0]
+    return hi, lo
 
 
 def flag_inputs(seed, size, n_set):
@@ -240,6 +275,57 @@ def test_compact_indices_kernel_matches_plain(cuda, size, n_set, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "size,max_run,depth",
+    [(4 << 20, 33, 16), (4 << 20, 200, 64), (100_003, 3, 1), (5, 9, 64), (70_000, 20_000, 20_000)],
+    ids=["tight", "untight", "depth1", "tiny", "deep-halo"],
+)
+def test_dupwin_kernel_matches_plain(cuda, size, max_run, depth):
+    k1, rng = key_runs(16, size, max_run)
+    w = rng.integers(0, max(2, max_run // 4), size).astype(np.int32)
+    args = (t(k1, cuda), t(w, cuda), depth)
+    got = dupwin.first_occurrence_flags(*args)
+    ref = dupwin.first_occurrence_flags_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "size,window,max_run",
+    [(4 << 20, 256, 129), (4 << 20, 256, 700), (100_003, 512, 257), (1000, 1024, 40),
+     (777, 2, 3), (3000, 6, 5)],
+    ids=["bench", "dense", "w512-pad", "one-window", "w2", "w6-not-pow2"],
+)
+def test_winsort_kernel_matches_plain(cuda, size, window, max_run):
+    k1, rng = key_runs(17, size, max_run)
+    w = rng.integers(0, 1 << 15, size).astype(np.int32)
+    args = (t(k1, cuda), t(w, cuda), window)
+    got = winsort.window_sort_w(*args)
+    ref = winsort.window_sort_w_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "size,block,kind",
+    [(4 << 20, 8192, "random"), (1 << 18, 2048, "all-equal"), (1 << 18, 2048, "reversed"),
+     (1 << 18, 2048, "sentinel-heavy"), (1 << 18, 2048, "skewed"), (4096, 2048, "random"),
+     (1 << 16, 32, "negative")],
+    ids=["bench", "all-equal", "reversed", "sentinel-heavy", "skewed", "one-round", "tile32"],
+)
+def test_mergesort_kernel_matches_plain(cuda, size, block, kind):
+    hi, lo = merge_inputs(18, size, kind)
+    args = (t(hi, cuda), t(lo, cuda))
+    got = mergesort.merge_sort_2key(*args, block=block)
+    ref = mergesort.merge_sort_2key_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32 and torch.equal(g, r)
+
+
+@pytest.mark.cuda
 def test_fused_extract_step_cuda_matches_cpu(cuda):
     """The fused fast path on the card equals the CPU run (the plain
     versions) on a small corridor tile: every _cut exit identical, and the
@@ -275,6 +361,46 @@ def test_fused_extract_step_cuda_matches_cpu(cuda):
     ref = frontend_fused.fused_extract_step(t(xyz), t(mask), params, **step_kw)
     for key in ("labels", "ground_keep", "count", "alive", "accepted", "cells_overflow"):
         assert torch.equal(got[key].cpu(), ref[key]), key
+    np.testing.assert_allclose(n(got["center"]), n(ref["center"]), atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kw",
+    [dict(sort_mode="cell", plan=True), dict(sort_mode="cell"), dict(sort_mode="hier"),
+     dict(sort_mode="hier", hier_window=512), dict(sort_mode="merge"), dict(obb="sort"),
+     dict(geometric_voxels=False)],
+    ids=["cell-tight", "cell-untight", "hier", "hier-512", "merge", "obb-sort",
+         "centroid-voxels"],
+)
+def test_fused_sort_modes_cuda_match_cpu(cuda, kw):
+    """Each sort mode, the sort-based OBB and centroid voxels on the card
+    equal the CPU run on a 32,768-row tile (a power of two: merge takes its
+    kernel): labels, keep, counts and accepted identical, centres within
+    1 mm (OBB sums and voxel centroids add in another order)."""
+    from pointcloudhookup_tpu_torch.config import ExtractParams
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
+    from pointcloudhookup_tpu_torch.ops import frontend_fused
+
+    pts, _ = synthetic_corridor(
+        np.random.default_rng(6), n_ground=26_000, n_veg=3_500,
+        towers=((-60.0, 0.0), (60.0, 10.0)), pts_per_tower=1_500, extent=150.0,
+    )
+    cap = 32768
+    xyz = np.zeros((cap, 3), np.float32)
+    xyz[: len(pts)] = (pts - pts.mean(axis=0)).astype(np.float32)[:cap]
+    mask = np.arange(cap) < len(pts)
+    kw = dict(kw)
+    if kw.pop("plan", False):
+        kw["cell_plan"] = frontend_fused.cell_sort_plan(np.ptp(pts, axis=0))
+    step_kw = dict(dict(max_cells=4096, min_cell_points=2, geometric_voxels=True), **kw)
+    params = ExtractParams(max_clusters=32)
+    got = frontend_fused.fused_extract_step(t(xyz, cuda), t(mask, cuda), params, **step_kw)
+    ref = frontend_fused.fused_extract_step(t(xyz), t(mask), params, **step_kw)
+    for key in ("labels", "ground_keep", "count", "alive", "accepted", "cells_overflow",
+                "hier_runs_over"):
+        assert torch.equal(got[key].cpu(), ref[key]), key
+    assert int(ref["accepted"].sum()) == 2
     np.testing.assert_allclose(n(got["center"]), n(ref["center"]), atol=1e-3)
 
 

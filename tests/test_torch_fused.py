@@ -271,32 +271,3 @@ def test_precut_overflow_flagged_like_jax():
     for i, (g, r) in enumerate(zip(got, ref)):
         np.testing.assert_array_equal(g, r, err_msg=f"output {i}")
 
-
-@pytest.mark.parametrize(
-    "kwargs,item",
-    [
-        (dict(geometric_voxels=True, emit="codes", sort_mode="hier"), "item 11"),
-        (dict(geometric_voxels=True, emit="codes", sort_mode="cell"), "item 11"),
-        (dict(geometric_voxels=True, emit="codes", sort_mode="merge"), "item 11"),
-        (dict(geometric_voxels=False), "item 13"),
-        (dict(geometric_voxels=True, emit="xyz"), "item 13"),
-    ],
-    ids=["hier", "cell", "merge", "centroid-voxels", "emit-xyz"],
-)
-def test_unported_modes_raise(kwargs, item):
-    xyz = torch.zeros(1024, 3)
-    mask = torch.ones(1024, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match=item):
-        tff.fused_downsample_ground_cluster(xyz, mask, **kwargs)
-
-
-@pytest.mark.parametrize(
-    "kwargs,item",
-    [(dict(geometric_voxels=True, obb="sort"), "item 12"),
-     (dict(geometric_voxels=False), "item 13")],
-    ids=["obb-sort", "centroid-voxels"],
-)
-def test_fused_extract_step_unported_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tff.fused_extract_step(torch.zeros(1024, 3), torch.ones(1024, dtype=torch.bool),
-                               **kwargs)
