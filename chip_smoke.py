@@ -678,8 +678,11 @@ def main() -> int:
 
     # sort-mode kernels on the bench tile's keys: dupwin on the tight key
     # (depth 16) and on the cell key (depth 64), winsort on the hier keys,
-    # mergesort on the Morton words, and at block 2,048 on adversarial pairs
-    cs = frontend_fused._effective_cell_shift(params.cluster.eps, 0.1, 5)
+    # mergesort on the Morton words, and at block 2,048 on adversarial pairs.
+    # Bytes are the function's: a u32 key k1 is 4 bytes (the port holds it
+    # in int64, which the kernels read at 8), winsort's w input is u16 and
+    # dupwin writes one flag byte
+    cs =frontend_fused._effective_cell_shift(params.cluster.eps, 0.1, 5)
     ksort, _, _, w_low = frontend_fused.tight_cell_key(v_b, hi0, lo0, mask_b, sort_plan, cs)
     k1, w16 = frontend_fused.cell_key(hi0, lo0, mask_b, 3 * cs)
     for label, key, wv, depth in ((f"tight key, depth {sort_plan[4]}", ksort, w_low, sort_plan[4]),
@@ -687,13 +690,13 @@ def main() -> int:
         case("dupwin", f"{label}, rows {N_POINTS}",
              lambda key=key, wv=wv, d=depth: dupwin.first_occurrence_flags(key, wv, d),
              lambda key=key, wv=wv, d=depth: dupwin.first_occurrence_flags_plain(key, wv, d),
-             exact("dupwin"), nbytes=N_POINTS * (8 + 4 + 1))
+             exact("dupwin"), nbytes=N_POINTS * (4 + 4 + 1))
     keys0 = winsort.packed_windows(k1, w16, 256)
     keys_mid = keys0[128:-128]
     case("winsort", f"hier keys, rows {N_POINTS}, W 256",
          lambda: winsort.window_sort_w(k1, w16, 256),
          lambda: winsort.window_sort_w_plain(k1, w16, 256),
-         exact("winsort"), nbytes=N_POINTS * (8 + 4 + 4),
+         exact("winsort"), nbytes=N_POINTS * (4 + 2 + 4),
          library_fn=lambda: (keys0.view(-1, 256).sort(dim=1), keys_mid.view(-1, 256).sort(dim=1)))
     packed = (hi0.to(torch.int64) << 30) | lo0.to(torch.int64)
     # the wrapper's parts: the blocked torch.sort and the merge rounds

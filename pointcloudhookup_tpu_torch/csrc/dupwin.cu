@@ -10,9 +10,10 @@
 // duplicate.  Unlike the TPU kernel there is no rule that n be a multiple
 // of 32768 and no depth < 128 cap: any n and any depth >= 1.
 //
-// Bound: device-memory bandwidth.  The function reads k1 (8 bytes, the
-// port holds u32 keys in int64) and w (4 bytes) once and writes one flag
-// byte per row.  The TPU kernel reached each row's predecessors with lane
+// Bound: device-memory bandwidth.  The function reads the u32 key k1 and
+// w (4 bytes each) once and writes one flag byte per row, 9 bytes; this
+// kernel reads k1 as the port holds it, in int64, so it moves 13.  The
+// TPU kernel reached each row's predecessors with lane
 // rolls of a second, shifted input view; here a block stages its 1024-row
 // tile plus a depth-row halo in shared memory, so every row is read from
 // device memory about (1 + depth / 1024) times, and each thread compares

@@ -11,8 +11,9 @@
 // written.  k1 is invariant (its rows are already sorted within every
 // window), so only w is written.  W is any even size from 2 to 1024.
 //
-// Bound: device-memory bandwidth.  The function reads k1 (8 bytes) and w
-// (4 bytes) and writes w once.  The TPU kernel kept its network on one i32
+// Bound: device-memory bandwidth.  The function reads the u32 key k1 and
+// the u16 code w and writes w as int32 once, 10 bytes a row; this kernel
+// reads k1 in int64 and w in int32, as the port holds them.  The TPU kernel kept its network on one i32
 // operand by ranking k1 inside the window; here the packed 64-bit key
 // (k1 << 16) | w is sorted directly: one block per window loads its keys
 // into shared memory, pads them to the next power of two with the largest

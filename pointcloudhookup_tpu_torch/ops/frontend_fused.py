@@ -164,17 +164,6 @@ def morton_keys(xyz, mask, voxel_size: float = 0.1):
     return torch.where(mask, hi, SENTINEL_HI), lo, mn, v
 
 
-def voxel_centre_offset(mn, voxel_size: float = 0.1):
-    """float32[3] mn + vs/2 as XLA:CPU compiles the reference's whole fused
-    step, where mn = floor(.) * vs and the half-voxel add round ONCE (a
-    fused multiply-add): the origin's voxel index k = mn / vs (exact after
-    rounding: mn is k * vs within one float32 ulp) times vs plus vs/2,
-    through float64."""
-    vs = torch.tensor(voxel_size, dtype=torch.float32, device=mn.device)
-    k = torch.round(mn.double() / vs.double())
-    return (k * vs.double() + (vs * 0.5).double()).to(torch.float32)
-
-
 def sort_codes(hi, lo):
     """(hi, lo) sorted lexicographically: ONE sort of the exact 2-word key;
     lo < 2**30, so (hi << 30) | lo orders as the pair and SENTINEL_HI << 30
@@ -602,7 +591,7 @@ def fused_extract_step(
             stats = cluster_obb_stats_codes(
                 hi, lo, labels, keep, mn, max_clusters=params.max_clusters,
                 num_angles=params.obb_angles, per_cluster_cap=per_cluster_cap,
-                points_cap=points_cap, offset=voxel_centre_offset(mn),
+                points_cap=points_cap,
             )
         accepted = filter_and_dedup(stats, params.filters)
         return dict(labels=labels, ground_keep=keep, base_height=base,

@@ -42,7 +42,7 @@ def first_occurrence_flags(k1, w, depth: int):
         k1.data_ptr(), w.data_ptr(), n, depth, out.data_ptr(), build.stream(k1.device)
     )
     build.check(rc, "first_occurrence_flags")
-    launches += 1
+    launches += n > 0
     return out
 
 

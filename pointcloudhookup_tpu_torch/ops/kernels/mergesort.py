@@ -19,7 +19,7 @@ import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
 
-launches = 0  # kernel launches in this process (read and reset by chip_smoke.py)
+launches = 0  # merge_rounds calls that ran the kernel (read and reset by chip_smoke.py)
 
 MAX_BLOCK = 8192  # the kernel's output tile: 2 * block int64 keys in shared memory
 
@@ -68,7 +68,7 @@ def merge_rounds(keys, scratch, block: int):
         keys.data_ptr(), scratch.data_ptr(), n, block, build.stream(keys.device)
     )
     build.check(rc, "merge_sort_2key")
-    launches += 1
+    launches += 1  # one call: log2(n / block) kernel launches, one per round
     rounds = (n // block).bit_length() - 1
     return scratch if rounds % 2 else keys
 

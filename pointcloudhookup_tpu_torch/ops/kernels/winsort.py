@@ -17,7 +17,7 @@ import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
 
-launches = 0  # kernel launches in this process (read and reset by chip_smoke.py)
+launches = 0  # window_sort_w calls that ran the kernel (read and reset by chip_smoke.py)
 
 PAD_K1 = 0xFFFFFFFF
 PAD_W = 0x7FFF
@@ -51,7 +51,7 @@ def window_sort_w(k1, w, window: int = 256):
         k1.data_ptr(), w.data_ptr(), out.data_ptr(), n, window, build.stream(k1.device)
     )
     build.check(rc, "window_sort_w")
-    launches += 1
+    launches += n > 0  # one call: a launch per pass, the second where n > window
     return out
 
 

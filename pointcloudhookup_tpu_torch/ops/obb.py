@@ -167,15 +167,13 @@ def cluster_obb_stats(xyz, labels, mask, *, max_clusters: int = 128,
 def cluster_obb_stats_codes(hi, lo, labels, mask, mn, *, voxel_size: float = 0.1,
                             max_clusters: int = 128, num_angles: int = 256,
                             angle_tile: int = 32, per_cluster_cap: int = 16384,
-                            points_cap: int | None = None, offset=None):
+                            points_cap: int | None = None):
     """cluster_obb_stats over Morton-coded voxel rows (hi/lo int32[N], grid
-    origin mn float32[3]): sorts (label, hi, lo) and decodes the geometric
-    voxel centres on the [K, P] member tensor only, ``ix * vs + offset``
-    rounded once (XLA:CPU contracts it into a fused multiply-add).  offset
-    float32[3] defaults to ``mn + vs/2``; the fused step passes the one its
-    reference rounds (``ops/frontend_fused.py::voxel_centre_offset``).
-    points_cap first compacts the labelled rows to that capacity; rows
-    beyond it are counted in 'overflow'."""
+    origin mn float32[3], a multiple of vs): sorts (label, hi, lo) and
+    decodes the geometric voxel centres on the [K, P] member tensor only,
+    ``ix * vs + voxel_centre_offset(mn)`` rounded once (XLA:CPU contracts
+    it into a fused multiply-add).  points_cap first compacts the labelled
+    rows to that capacity; rows beyond it are counted in 'overflow'."""
     n = hi.shape[0]
     k = max_clusters
     valid = (labels >= 0) & (labels < k) & mask
@@ -191,12 +189,22 @@ def cluster_obb_stats_codes(hi, lo, labels, mask, mn, *, voxel_size: float = 0.1
         lab_s, (hi[perm], lo[perm]), k, min(per_cluster_cap, n)
     )
     vs = torch.tensor(voxel_size, dtype=torch.float32, device=hi.device)
-    if offset is None:
-        offset = mn + vs * 0.5
+    offset = voxel_centre_offset(mn, voxel_size)
     gx, gy, gz = (fma_f32(i.to(torch.float32), vs, offset[a])
                   for a, i in enumerate(morton_decode(gh, gl)))
     return _obb_from_members(gx, gy, gz, member, counts, alive, overflow + cap_over, k,
                              num_angles=num_angles, angle_tile=angle_tile)
+
+
+def voxel_centre_offset(mn, voxel_size: float = 0.1):
+    """float32[3] mn + vs/2 as XLA:CPU compiles the reference's whole fused
+    step, where mn = floor(.) * vs and the half-voxel add round ONCE (a
+    fused multiply-add): the origin's voxel index k = mn / vs (exact after
+    rounding: mn is k * vs within one float32 ulp) times vs plus vs/2,
+    through float64."""
+    vs = torch.tensor(voxel_size, dtype=torch.float32, device=mn.device)
+    k = torch.round(mn.double() / vs.double())
+    return (k * vs.double() + (vs * 0.5).double()).to(torch.float32)
 
 
 def _densify_runs(lab_s, payloads, k: int, p: int):
