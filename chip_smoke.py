@@ -40,7 +40,11 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
   3. runs each kernel and its plain PyTorch version on the same device
      tensors at the shapes the paths give it, requires agreement (integer
      outputs, pop, counts and extremes identical; OBB sums within the f32
-     summation bound), times both with CUDA events and computes each
+     summation bound), times both with CUDA events, profiles one call of the
+     kernel (device_ms: the summed device time of what that call ran, with
+     the names of its kernels) and one of its library call where there is
+     one (library_device_ms), times the host's issue of the calls
+     (host_ms), to tell device time from host time, and computes each
      kernel's bound (the larger of its bytes over 3.35 TB/s and its float32
      operations over 67 TFLOP/s, counted from this run's inputs).
 
@@ -145,6 +149,19 @@ def timed(fn, reps: int):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def issue_ms(fn, reps: int) -> float:
+    """Host ms per call to issue reps calls back to back (the device is
+    idle at the start, the queue is drained after); where it nears the event
+    ms of timed(), the host, not the device, sets the pace."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
 
 
 def max_abs(a, b) -> float:
@@ -508,22 +525,42 @@ def main() -> int:
         plain_ms, ref = timed(plain_fn, plain_reps)
         lib_ms = timed(library_fn, reps)[0] if library_fn is not None else None
         err = compare(got, ref)
+        host_ms = issue_ms(kernel_fn, reps)
+        prof = profile_iteration(kernel_fn, top=50)
+        lib_dev = profile_iteration(library_fn)["device_ms"] if library_fn is not None else None
+        ran = [(k.replace("(anonymous namespace)::", "").split("(")[0], v)
+               for k, v in prof["top"]]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOPS * 1e3
-        results[name].append(dict(
-            case=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
-            bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-        ))
-        lib = f"  library {lib_ms:8.3f} ms" if lib_ms is not None else ""
-        print(f"{name:16s} {label:46s} kernel {ms:8.3f} ms  plain {plain_ms:9.3f} ms"
-              f"{lib}  bound {max(t_bytes, t_ops):.4f} ms  max|diff| {err}")
+        entry = dict(
+            case=label, ms=ms, device_ms=prof["device_ms"], host_ms=host_ms, plain_ms=plain_ms,
+            library_ms=lib_ms, library_device_ms=lib_dev, max_abs_err=err, bytes=nbytes, flops=flops,
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+            device_kernels=ran,
+        )
+        results[name].append(entry)
+        lib = (f"  library {lib_ms:8.3f} ms (device {lib_dev})" if lib_ms is not None
+               else "")
+        dev = f"{prof['device_ms']:.4f}" if prof["device_ms"] is not None else "not measured"
+        print(f"{name:16s} {label:46s} kernel {ms:8.3f} ms  device {dev} ms  host "
+              f"{host_ms:.4f} ms  plain {plain_ms:9.3f} ms{lib}  bound {max(t_bytes, t_ops):.4f} "
+              f"ms  max|diff| {err}")
+        print(f"{'':16s} one profiled call ran: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ran))
+        return entry
 
     def exact(name):
         def cmp(got, ref):
             require_equal(name, flat(got), flat(ref))
             return 0.0
         return cmp
+
+    def compact_bytes(keep_mask, nchan, capacity):
+        # keep read once, the kept rows that reach the output (this run's
+        # count, up to the capacity) read once per channel, every output row
+        # written once
+        moved = min(int(keep_mask.sum()), capacity)
+        return keep_mask.numel() + 4 * nchan * (moved + capacity)
 
     # compactrows: the survivor compaction (keep[4M], 4 channels)
     keep = frontend_exact.exact_extract_graph(xyz, mask, params, _cut=1, **kw)["keep"]
@@ -535,7 +572,7 @@ def main() -> int:
     case("compactrows", f"keep[{n_cap}] x4 -> cap {cap}",
          lambda: compactrows.compact_rows_multi(keep, chans, cap),
          lambda: compactrows.compact_rows_multi_plain(keep, chans, cap),
-         exact("compactrows"), nbytes=n_cap * (1 + 4 * 4) + 4 * 4 * cap,
+         exact("compactrows"), nbytes=compact_bytes(keep, 4, cap),
          library_fn=lambda: stacked[:, keep])
 
     # segscan: per-cell population (add, reverse) and the label fill (max)
@@ -640,6 +677,20 @@ def main() -> int:
          lambda: obb_accum.obb_accumulate_xyz_plain(px, py, pz, lab_s, max_clusters=k, num_angles=a),
          cmp_obb("obb_accum", mag), nbytes=cap * 16 + out_bytes, flops=6.0 * n_lab * a)
 
+    # compactrows: the exact path's dense-cell table pack (5 channels: start
+    # row, population and one member coordinate), over the sorted rows
+    ctot_s = segscan.segmented_scan(valid_s, c_start, "add", True)
+    dense_e = c_start & (valid_s != 0) & (ctot_s >= settled["floor"])
+    me = params.cluster.max_cells
+    pos_e = torch.arange(cap, dtype=torch.int32, device=dev)
+    chans5 = (pos_e, ctot_s, *(v.view(torch.int32) for v in (px, py, pz)))
+    stacked5 = torch.stack(chans5)
+    case("compactrows", f"dense table keep[{cap}] x5 -> m {me}",
+         lambda: compactrows.compact_rows_multi(dense_e, chans5, me),
+         lambda: compactrows.compact_rows_multi_plain(dense_e, chans5, me),
+         exact("compactrows"), nbytes=compact_bytes(dense_e, 5, me),
+         library_fn=lambda: stacked5[:, dense_e])
+
     # fast path, bench configuration: the pre-cut compaction of the Morton
     # words, the OBB accumulation over the settled run's rows, and the
     # cell-table pack of the run without pre-cut (compact_indices)
@@ -650,8 +701,19 @@ def main() -> int:
     case("compactrows", f"Morton keep_pre[{N_POINTS}] -> cap {pcap}",
          lambda: compactrows.compact_rows(keep_pre, hi0, lo0, pcap),
          lambda: compactrows.compact_rows_plain(keep_pre, hi0, lo0, pcap),
-         exact("compactrows"), nbytes=N_POINTS * (1 + 2 * 4) + 2 * 4 * pcap,
+         exact("compactrows"), nbytes=compact_bytes(keep_pre, 2, pcap),
          library_fn=lambda: torch.stack((hi0, lo0))[:, keep_pre])
+
+    # the m-table pack of the pre-cut run (one channel, dead slots n - 1)
+    dense_p, _ = frontend_fused.fused_downsample_ground_cluster(
+        xyz_b, mask_b, params, precut_div=precut_div, _cut=3, **bench_kw)
+    mc = bench_kw["max_cells"]
+    pos_p = torch.arange(pcap, dtype=torch.int32, device=dev)
+    case("compactrows", f"m-table dense_start[{pcap}] ({int(dense_p.sum())} set) x1 -> m {mc}",
+         lambda: compactrows.compact_rows_multi(dense_p, (pos_p,), mc, fills=(pcap - 1,)),
+         lambda: compactrows.compact_rows_multi_plain(dense_p, (pos_p,), mc, fills=(pcap - 1,)),
+         exact("compactrows"), nbytes=compact_bytes(dense_p, 1, mc),
+         library_fn=lambda: pos_p[dense_p])
 
     hi, lo, keepf, labels, _, mn = frontend_fused.fused_downsample_ground_cluster(
         xyz_b, mask_b, params, precut_div=precut_div, **bench_kw)
@@ -668,7 +730,6 @@ def main() -> int:
 
     dense_start, _ = frontend_fused.fused_downsample_ground_cluster(
         xyz_b, mask_b, params, precut_div=0, _cut=3, **bench_kw)
-    mc = bench_kw["max_cells"]
     case("compact_indices",
          f"dense_start[{N_POINTS}] ({int(dense_start.sum())} set) -> m {mc}",
          lambda: compactidx.compact_indices(dense_start, mc),
@@ -699,19 +760,21 @@ def main() -> int:
          exact("winsort"), nbytes=N_POINTS * (4 + 2 + 4),
          library_fn=lambda: (keys0.view(-1, 256).sort(dim=1), keys_mid.view(-1, 256).sort(dim=1)))
     packed = (hi0.to(torch.int64) << 30) | lo0.to(torch.int64)
-    # the wrapper's parts: the blocked torch.sort and the merge rounds
-    blocked = mergesort.pack(hi0, lo0).view(-1, 8192).sort(dim=1).values.reshape(-1)
-    scratch = torch.empty_like(blocked)
-    blocked_ms = timed(lambda: mergesort.pack(hi0, lo0).view(-1, 8192).sort(dim=1), 5)[0]
-    rounds_ms = timed(lambda: mergesort.merge_rounds(blocked.clone(), scratch, 8192), 5)[0]
-    clone_ms = timed(lambda: blocked.clone(), 5)[0]
-    mergesort_parts = dict(blocked_sort_ms=blocked_ms, merge_rounds_ms=rounds_ms - clone_ms)
-    print(f"mergesort at {N_POINTS} rows: blocked sort (pack + [512, 8192] torch.sort) "
-          f"{blocked_ms:.3f} ms, 9 merge rounds {rounds_ms - clone_ms:.3f} ms")
-    case("mergesort", f"Morton (hi, lo)[{N_POINTS}], block 8192",
-         lambda: mergesort.merge_sort_2key(hi0, lo0),
-         lambda: mergesort.merge_sort_2key_plain(hi0, lo0),
-         exact("mergesort"), nbytes=N_POINTS * 16, library_fn=lambda: torch.sort(packed))
+    merge_case = case("mergesort", f"Morton (hi, lo)[{N_POINTS}], block 8192",
+                      lambda: mergesort.merge_sort_2key(hi0, lo0),
+                      lambda: mergesort.merge_sort_2key_plain(hi0, lo0),
+                      exact("mergesort"), nbytes=N_POINTS * 16,
+                      library_fn=lambda: torch.sort(packed))
+    # its parts, from the profiled call: the block sort and the 9 merge rounds
+    mergesort_parts = {
+        part: sum(v for k, v in merge_case["device_kernels"] if kernel in k)
+        for part, kernel in (("block_sort_ms", "block_sort_kernel"),
+                             ("merge_rounds_ms", "merge_kernel"))
+    }
+    print(f"mergesort at {N_POINTS} rows, device ms: block sort "
+          f"{mergesort_parts['block_sort_ms']:.4f}, 9 merge rounds "
+          f"{mergesort_parts['merge_rounds_ms']:.4f}; kernel {merge_case['ms']:.4f} ms against "
+          f"torch.sort of the packed keys {merge_case['library_ms']:.4f} ms")
     rng3 = np.random.default_rng(3)
     na = 1 << 20
     half = np.arange(na // 2)
@@ -747,6 +810,8 @@ def main() -> int:
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=sum(c["ms"] for c in cases),
+            device_ms=(None if any(c["device_ms"] is None for c in cases)
+                       else sum(c["device_ms"] for c in cases)),
             plain_ms=sum(c["plain_ms"] for c in cases),
             bound_ms=sum(c["bound_ms"] for c in cases),
             bound_by=worst["bound_by"],

@@ -1,5 +1,4 @@
-// Count and tile-offset passes shared by the order-preserving compaction
-// kernels (compactrows.cu, compactidx.cu).
+// Count and tile-offset passes of compact_indices (compactidx.cu).
 //
 // Rows are cut into kTile = kThreads * kItems row tiles, one block each;
 // each thread owns kItems CONSECUTIVE rows, so a thread's exclusive prefix
@@ -10,7 +9,7 @@
 // The including file then scans each tile again and emits.
 #pragma once
 
-#include "common.cuh"
+#include "block_scan.cuh"
 
 namespace {
 
@@ -18,38 +17,6 @@ constexpr int kThreads = 512;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;  // 4096 rows per block
 constexpr int kScanThreads = 1024;
-
-// Exclusive block-wide sum of one int per thread.  warp_sums is shared
-// scratch of THREADS / 32 ints; *total receives the block's sum.  Safe to
-// call repeatedly in a loop (it synchronizes before reusing warp_sums).
-template <int THREADS>
-__device__ int block_exclusive_sum(int v, int* warp_sums, int* total) {
-  constexpr int kWarps = THREADS / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int up = __shfl_up_sync(pch::kFullMask, incl, d);
-    if (lane >= d) incl += up;
-  }
-  __syncthreads();  // earlier readers of warp_sums are done
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kWarps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(pch::kFullMask, w, d);
-      if (lane >= d) w += up;
-    }
-    if (lane < kWarps) warp_sums[lane] = w;  // inclusive over warps
-  }
-  __syncthreads();
-  *total = warp_sums[kWarps - 1];
-  const int warp_prefix = warp > 0 ? warp_sums[warp - 1] : 0;
-  return warp_prefix + incl - v;
-}
 
 __global__ void count_kernel(const unsigned char* __restrict__ keep,
                              long long n, int* __restrict__ tile_counts) {

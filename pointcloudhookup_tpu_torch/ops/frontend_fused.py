@@ -16,9 +16,9 @@ runs contiguous:
 
 The sort has four modes, as in the reference:
   * "full": one sort of the exact 2-word key (hi << 30) | lo;
-  * "merge": the same order through a blocked sort and the merge-path
-    rounds of the mergesort kernel (N a power of two >= 2 * 8192; other
-    N take the "full" sort, as the reference routes them);
+  * "merge": the same order through the mergesort kernels, a block sort
+    and merge-path rounds (N a power of two >= 2 * 8192; other N take the
+    "full" sort, as the reference routes them);
   * "hier": one stable sort of the u32 cell key k1 with the within-cell
     code w as payload, then the winsort kernel restores (k1, w) order in
     windows of hier_window rows at offsets 0 and W/2 -- exact wherever a
@@ -266,9 +266,8 @@ def pack_dense_rows(dense_start, m: int, route: str | None = None):
     pos = torch.arange(n, dtype=torch.int32, device=dense_start.device)
     # one payload channel (the reference routes the row index as both
     # Morton words and clips the sentinel of dead slots to n - 1)
-    (rows_c,), count = compact_rows_multi(dense_start, (pos,), m)
-    live = torch.arange(m, device=dense_start.device) < torch.clamp(count, max=m)
-    return torch.where(live, rows_c, n - 1)
+    (rows_c,), _ = compact_rows_multi(dense_start, (pos,), m, fills=(n - 1,))
+    return rows_c
 
 
 def fused_downsample_ground_cluster(

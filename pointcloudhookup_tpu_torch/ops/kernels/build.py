@@ -49,7 +49,7 @@ _SIGNATURES = {
     "pch_error_string": (ctypes.c_char_p, [_I32]),
     "pch_max_channels": (_I32, []),
     "pch_compact_rows_scratch": (_I64, [_I64]),
-    "pch_compact_rows": (_I32, [_P, _I64, _P, _P, _I32, _I64, _P, _P]),
+    "pch_compact_rows": (_I32, [_P, _I64, _P, _P, _I32, _P, _I64, _P, _P]),
     "pch_segscan_scratch": (_I64, [_I64]),
     "pch_segscan": (_I32, [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P]),
     "pch_neighbor_reduce": (
@@ -70,7 +70,8 @@ _SIGNATURES = {
     "pch_compact_indices": (_I32, [_P, _I64, _I32, _P, _P, _P]),
     "pch_dupwin": (_I32, [_P, _P, _I64, _I32, _P, _P]),
     "pch_winsort": (_I32, [_P, _P, _P, _I64, _I32, _P]),
-    "pch_merge_rounds": (_I32, [_P, _P, _I64, _I32, _P]),
+    "pch_block_sort": (_I32, [_P, _P, _P, _I64, _I32, _P]),
+    "pch_merge_rounds": (_I32, [_P, _P, _P, _P, _I64, _I32, _P]),
 }
 
 _lock = threading.Lock()
@@ -180,7 +181,9 @@ def check(rc: int, what: str) -> None:
 
 
 def stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as a raw pointer (PyTorch's own
+    fast query, without building a Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -4,13 +4,13 @@
 Counterpart of ``pointcloudhookup_tpu/ops/pallas/mergesort.py::
 merge_sort_2key`` (and a copy of its ``merge_sort_eligible``).  Each pair
 packs into one int64 key, hi * 2**32 + (lo + 2**31), whose order is the
-pair's lexicographic order for every int32 pair.  On a CUDA tensor the
-blocked first phase is ``torch.sort`` of the [N / block, block] view (the
-reference's ``lax.sort`` outside any kernel), and the log2(N / block)
-merge-path rounds are the kernel of ``csrc/mergesort.cu``.  The plain
+pair's lexicographic order for every int32 pair.  On a CUDA tensor two
+kernels of ``csrc/mergesort.cu`` run: the block sort (reads the pairs,
+packs them and sorts each block of ``block`` rows) and the log2(N / block)
+merge-path rounds (the last one unpacks into the int32 outputs).  The plain
 PyTorch version is one ``torch.sort`` of the packed keys: the output is the
 same (a pair is the whole record), and it is what CPU tensors take and what
-the kernel is held against on the card.
+the kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -19,9 +19,9 @@ import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
 
-launches = 0  # merge_rounds calls that ran the kernel (read and reset by chip_smoke.py)
+launches = 0  # merge_sort_2key calls that ran the kernels (read and reset by chip_smoke.py)
 
-MAX_BLOCK = 8192  # the kernel's output tile: 2 * block int64 keys in shared memory
+MAX_BLOCK = 8192  # the block sort's tile: one CUDA block sorts 8,192 keys
 
 
 def merge_sort_eligible(n: int, block: int = 8192) -> bool:
@@ -42,7 +42,8 @@ def unpack(key):
 def merge_sort_2key(hi, lo, *, block: int = 8192):
     """(hi, lo) int32[N] sorted lexicographically; N must satisfy
     merge_sort_eligible(N, block), and block is a power of two in
-    [32, 8192] (the kernel's tile)."""
+    [32, 8192]."""
+    global launches
     n = hi.shape[0]
     if not merge_sort_eligible(n, block):
         raise ValueError(f"merge_sort_2key needs a power-of-two N >= 2 * block "
@@ -54,23 +55,19 @@ def merge_sort_2key(hi, lo, *, block: int = 8192):
     build.require_cuda("merge_sort_2key", hi, lo)
     if hi.dtype != torch.int32 or lo.dtype != torch.int32 or lo.shape != (n,):
         raise ValueError(f"hi and lo must be int32[{n}]")
-    keys = pack(hi, lo).view(-1, block).sort(dim=1).values.reshape(-1)
-    return unpack(merge_rounds(keys, torch.empty_like(keys), block))
-
-
-def merge_rounds(keys, scratch, block: int):
-    """The kernel alone: keys int64[N] sorted in blocks of ``block`` rows
-    -> the sorted keys, in keys or in scratch (both are overwritten)."""
-    global launches
-    build.require_cuda("merge_rounds", keys, scratch)
-    n = keys.shape[0]
-    rc = build.library().pch_merge_rounds(
-        keys.data_ptr(), scratch.data_ptr(), n, block, build.stream(keys.device)
-    )
-    build.check(rc, "merge_sort_2key")
-    launches += 1  # one call: log2(n / block) kernel launches, one per round
-    rounds = (n // block).bit_length() - 1
-    return scratch if rounds % 2 else keys
+    # the block sort reads 16 bytes at a time: a view off that alignment is copied
+    hi, lo = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (hi, lo))
+    keys = torch.empty((2, n), dtype=torch.int64, device=hi.device)  # keys, scratch
+    out = torch.empty((2, n), dtype=torch.int32, device=hi.device)
+    lib = build.library()
+    stream = build.stream(hi.device)
+    kp, op = keys.data_ptr(), out.data_ptr()
+    build.check(lib.pch_block_sort(hi.data_ptr(), lo.data_ptr(), kp, n, block, stream),
+                "merge_sort_2key")
+    build.check(lib.pch_merge_rounds(kp, kp + 8 * n, op, op + 4 * n, n, block, stream),
+                "merge_sort_2key")
+    launches += 1  # one call: the block sort and log2(n / block) rounds
+    return out[0], out[1]
 
 
 def merge_sort_2key_plain(hi, lo):

@@ -41,12 +41,18 @@ def n(x):
     return x.detach().cpu().numpy()
 
 
-def compact_inputs(seed, size, density):
+def compact_inputs(seed, size, density, nchan=3, stretch=0):
+    """keep bool[size] and nchan int32 channels.  With stretch > 0 the
+    density changes every stretch rows (none, sparse, half or all kept), so
+    a scan crosses long runs of empty and of full tiles."""
     rng = np.random.default_rng(seed)
+    if stretch:
+        density = np.repeat(rng.choice([0.0, 0.002, 0.5, 1.0], size // stretch + 1),
+                            stretch)[:size]
     keep = rng.random(size) < density
     chans = [
         rng.integers(-2**31, 2**31 - 1, size, dtype=np.int64).astype(np.int32)
-        for _ in range(3)
+        for _ in range(nchan)
     ]
     return keep, chans
 
@@ -130,6 +136,13 @@ def merge_inputs(seed, size, kind):
         hi = rng.integers(-2**31, 2**31, size).astype(np.int32)
         lo = rng.integers(-2**31, 2**31, size).astype(np.int32)
         hi[::3] = hi[0]
+    elif kind == "extremes":  # INT32_MIN and INT32_MAX in either word
+        words = np.array([-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1], np.int64)
+        hi = rng.choice(words, size).astype(np.int32)
+        lo = rng.choice(words, size).astype(np.int32)
+    elif kind == "sorted":
+        order = np.lexsort((lo, hi))
+        hi, lo = hi[order], lo[order]
     return hi, lo
 
 
@@ -173,21 +186,50 @@ def cuda():
     return torch.device("cuda")
 
 
+COMPACT_CASES = {  # id: (size, density, cap (None: the kept count), channels, stretch, fills)
+    "fits": (1 << 20, 0.15, 1 << 18, 3, 0, None),
+    "count>cap": (100_003, 0.9, 50_000, 3, 0, None),
+    "tiny": (7, 1.0, 9, 3, 0, None),
+    "none-kept": (5000, 0.0, 64, 3, 0, None),
+    "one-channel-fill": (720_896, 0.01, 4096, 1, 0, (720_895,)),
+    "two-channels": (1 << 20, 0.3, 1 << 19, 2, 0, (2**31 - 1, 0)),
+    "five-channels": (1 << 20, 0.06, 65_536, 5, 0, None),
+    "eight-channels": (300_000, 0.5, 200_000, 8, 0, (-1, 1, -2**31, 2**31 - 1, 5, 6, 7, 8)),
+    "cap0": (100_003, 0.5, 0, 3, 0, None),
+    "no-rows": (0, 0.5, 16, 2, 0, (3, 4)),
+    "count==cap": (1 << 20, 0.2, None, 3, 0, None),
+    "ragged-n": (4096 * 37 + 13, 0.4, 70_000, 3, 0, None),
+    "16M-stretches": (16 << 20, None, 3 << 20, 2, 65_536, None),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "size,density,cap",
-    [(1 << 20, 0.15, 1 << 18), (100_003, 0.9, 50_000), (7, 1.0, 9), (5000, 0.0, 64)],
-    ids=["fits", "count>cap", "tiny", "none-kept"],
-)
-def test_compactrows_kernel_matches_plain(cuda, size, density, cap):
-    keep, chans = compact_inputs(2, size, density)
-    args = (t(keep, cuda), tuple(t(c, cuda) for c in chans), cap)
+@pytest.mark.parametrize("case", list(COMPACT_CASES), ids=list(COMPACT_CASES))
+def test_compactrows_kernel_matches_plain(cuda, case):
+    size, density, cap, nchan, stretch, fills = COMPACT_CASES[case]
+    keep, chans = compact_inputs(2, size, density, nchan, stretch)
+    cap = int(keep.sum()) if cap is None else cap
+    args = (t(keep, cuda), tuple(t(c, cuda) for c in chans), cap, fills)
     got, cnt = compactrows.compact_rows_multi(*args)
     ref, ref_cnt = compactrows.compact_rows_multi_plain(*args)
     torch.cuda.synchronize()
-    assert int(cnt) == int(ref_cnt)
+    assert int(cnt) == int(ref_cnt) == int(keep.sum())
+    assert len(got) == nchan
     for r, g in zip(ref, got):
-        assert torch.equal(r, g)
+        assert g.dtype == torch.int32 and torch.equal(r, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density,cap", [(0.17, 720_896), (0.9, 32_768)], ids=["fits", "count>cap"])
+def test_compact_rows_morton_kernel_matches_plain(cuda, density, cap):
+    """The Morton wrapper: SENTINEL_HI past the count in hi, zeros in lo."""
+    keep, (hi, lo) = compact_inputs(3, 4 << 20, density, nchan=2)
+    args = (t(keep, cuda), t(hi, cuda), t(lo, cuda), cap)
+    got = compactrows.compact_rows(*args)
+    ref = compactrows.compact_rows_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.cuda
@@ -307,17 +349,32 @@ def test_winsort_kernel_matches_plain(cuda, size, window, max_run):
     assert torch.equal(got, ref)
 
 
+MERGE_BLOCKS = [32 << i for i in range(9)]  # every power of two from 32 to 8192
+MERGE_CASES = {
+    "bench": (4 << 20, 8192, "random"),
+    "all-equal": (1 << 18, 2048, "all-equal"),
+    "reversed": (1 << 18, 2048, "reversed"),
+    "sentinel-heavy": (1 << 18, 2048, "sentinel-heavy"),
+    "skewed": (1 << 18, 2048, "skewed"),
+    "one-round": (4096, 2048, "random"),
+    "tile32": (1 << 16, 32, "negative"),
+    "extremes": (1 << 20, 1024, "extremes"),
+    "extremes-4M": (4 << 20, 8192, "extremes"),
+    "sorted": (4 << 20, 8192, "sorted"),
+    "offset-view": (1 << 16, 2048, "random"),
+    **{f"2x-block{b}": (2 * b, b, "negative") for b in MERGE_BLOCKS},
+    **{f"4M-block{b}": (4 << 20, b, "negative") for b in MERGE_BLOCKS},
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "size,block,kind",
-    [(4 << 20, 8192, "random"), (1 << 18, 2048, "all-equal"), (1 << 18, 2048, "reversed"),
-     (1 << 18, 2048, "sentinel-heavy"), (1 << 18, 2048, "skewed"), (4096, 2048, "random"),
-     (1 << 16, 32, "negative")],
-    ids=["bench", "all-equal", "reversed", "sentinel-heavy", "skewed", "one-round", "tile32"],
-)
-def test_mergesort_kernel_matches_plain(cuda, size, block, kind):
+@pytest.mark.parametrize("case", list(MERGE_CASES), ids=list(MERGE_CASES))
+def test_mergesort_kernel_matches_plain(cuda, case):
+    size, block, kind = MERGE_CASES[case]
     hi, lo = merge_inputs(18, size, kind)
     args = (t(hi, cuda), t(lo, cuda))
+    if case == "offset-view":  # views off the 16-byte alignment the block sort loads at
+        args = tuple(t(np.concatenate([[0], a]).astype(np.int32), cuda)[1:] for a in (hi, lo))
     got = mergesort.merge_sort_2key(*args, block=block)
     ref = mergesort.merge_sort_2key_plain(*args)
     torch.cuda.synchronize()

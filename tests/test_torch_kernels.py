@@ -56,20 +56,28 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize(
-    "size,density,cap",
-    [(5000, 0.3, 2048), (5000, 0.8, 2048), (4096, 0.0, 1024), (3000, 0.5, 4096)],
-    ids=["fits", "count>cap", "none-kept", "cap>n"],
+    "size,density,cap,fills",
+    [(5000, 0.3, 2048, None), (5000, 0.8, 2048, None), (4096, 0.0, 1024, None),
+     (3000, 0.5, 4096, None), (3000, 0.5, 4096, (2999, -1, 2**31 - 1)),
+     (4096, 0.0, 1024, (7, 8, 9)), (5000, 0.8, 2048, (-2**31, 0, 1))],
+    ids=["fits", "count>cap", "none-kept", "cap>n", "cap>n-fills", "none-kept-fills",
+         "count>cap-fills"],
 )
-def test_compactrows_plain_matches_reference(size, density, cap):
+def test_compactrows_plain_matches_reference(size, density, cap, fills):
+    """With fills, the rows past the count hold each channel's fill, where
+    the reference holds zeros (the m-table pack's n - 1 and the Morton
+    sentinel are such fills)."""
     keep, chans = compact_inputs(1, size, density)
     ref, ref_cnt = compact_rows_multi_reference(
         jnp.asarray(keep), tuple(jnp.asarray(c) for c in chans), cap
     )
-    got, cnt = compactrows.compact_rows_multi(t(keep), tuple(t(c) for c in chans), cap)
+    got, cnt = compactrows.compact_rows_multi(t(keep), tuple(t(c) for c in chans), cap, fills)
     assert int(cnt) == int(ref_cnt) == int(keep.sum())
-    for r, g in zip(ref, got):
+    live = np.arange(cap) < min(int(keep.sum()), cap)
+    for q, (r, g) in enumerate(zip(ref, got)):
+        want = np.asarray(r) if fills is None else np.where(live, np.asarray(r), fills[q])
         assert g.dtype == torch.int32 and g.shape == (cap,)
-        np.testing.assert_array_equal(n(g), np.asarray(r))
+        np.testing.assert_array_equal(n(g), want)
 
 
 _JNP_OPS = {"add": jnp.add, "max": jnp.maximum, "min": jnp.minimum}
