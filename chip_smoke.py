@@ -46,7 +46,12 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      one (library_device_ms), times the host's issue of the calls
      (host_ms), to tell device time from host time, and computes each
      kernel's bound (the larger of its bytes over 3.35 TB/s and its float32
-     operations over 67 TFLOP/s, counted from this run's inputs).
+     operations over 67 TFLOP/s, counted from this run's inputs: for the
+     pair kernels 9 operations for each pair within eps that the function
+     needs, counted by the plain version's walk, beside the all-pairs
+     count). Phase 3 also profiles one exact graph run (device ms by
+     kernel) and runs cluster_converge at the fast path's own call, the
+     bench configuration's 4,096-row cell table.
 
 Launch counts are reset just before each path's run (1, 4, 5, each mode of
 7) and read just after.  Prints the card's name and power limit, one JSON line of
@@ -520,7 +525,9 @@ def main() -> int:
     results = {name: [] for name in KERNELS}
 
     def case(name, label, kernel_fn, plain_fn, compare, *, nbytes, flops=0.0,
-             library_fn=None, reps=5, plain_reps=3):
+             library_fn=None, reps=5, plain_reps=3, pairs=None, all_pairs=None):
+        if pairs is not None:  # a pair kernel: 9 operations a pair within eps
+            flops = 9.0 * pairs
         ms, got = timed(kernel_fn, reps)
         plain_ms, ref = timed(plain_fn, plain_reps)
         lib_ms = timed(library_fn, reps)[0] if library_fn is not None else None
@@ -536,7 +543,7 @@ def main() -> int:
             case=label, ms=ms, device_ms=prof["device_ms"], host_ms=host_ms, plain_ms=plain_ms,
             library_ms=lib_ms, library_device_ms=lib_dev, max_abs_err=err, bytes=nbytes, flops=flops,
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-            device_kernels=ran,
+            device_kernels=ran, pairs=pairs, all_pairs=all_pairs,
         )
         results[name].append(entry)
         lib = (f"  library {lib_ms:8.3f} ms (device {lib_dev})" if lib_ms is not None
@@ -544,7 +551,9 @@ def main() -> int:
         dev = f"{prof['device_ms']:.4f}" if prof["device_ms"] is not None else "not measured"
         print(f"{name:16s} {label:46s} kernel {ms:8.3f} ms  device {dev} ms  host "
               f"{host_ms:.4f} ms  plain {plain_ms:9.3f} ms{lib}  bound {max(t_bytes, t_ops):.4f} "
-              f"ms  max|diff| {err}")
+              f"ms  max|diff| {err}"
+              + ("" if pairs is None else f"  pairs within eps {pairs} (all-pairs count "
+                 f"{all_pairs}, bound then {9.0 * all_pairs / F32_FLOPS * 1e3:.4f} ms)"))
         print(f"{'':16s} one profiled call ran: "
               + ", ".join(f"{k} {v:.4f}" for k, v in ran))
         return entry
@@ -589,18 +598,55 @@ def main() -> int:
              lambda v=vals, o=op, r=rev: segscan.segmented_scan_plain(v, c_start, o, r),
              exact("segscan"), nbytes=cap * (4 + 1 + 4))
 
-    # neighbor + cluster_converge on the dense-cell table; a pair test is
-    # 3 subtractions, 3 products and 2 sums, plus the reduction: 9 flops
+    # one exact graph run, profiled: device ms by kernel
+    graph = profile_iteration(lambda: frontend_exact.exact_extract_graph(xyz, mask, params, **kw))
+    print(f"one exact graph run: wall {graph['wall_ms']:.3f} ms, device busy "
+          f"{graph['device_ms']} ms; device ms by kernel:")
+    for name, ms in graph["top"]:
+        print(f"  {ms:8.3f}  {name[:110]}")
+
+    # neighbor + cluster_converge on the dense-cell table.  Their bound
+    # counts the pairs within eps the function needs (the plain version's
+    # walk with unit weights), 9 operations each: 3 subtractions, 3
+    # products, 2 sums and the reduction
     cells = frontend_exact.exact_extract_graph(xyz, mask, params, _cut=4, **kw)
     centers_t, ccount, alive = cells["centers"], cells["ccount"], cells["cell_alive"]
     m = centers_t.shape[0]
     n_alive = int(alive.sum())
     eps2 = torch.tensor(params.cluster.eps, dtype=torch.float32, device=dev) ** 2
+
+    def pair_counts(centers, allowed):
+        """Per row, the allowed columns within eps (int64)."""
+        k = centers.shape[0]
+        cnt, _ = neighbor.neighbor_reduce_plain(
+            centers, torch.zeros(k, dtype=torch.int32, device=dev),
+            torch.ones(k, dtype=torch.float32, device=dev), allowed, eps2, mode="pop")
+        return cnt.to(torch.int64)
+
+    def converge_pairs(centers, ccount_c, alive_c, min_points):
+        """cluster_cells' pairs: the pop pass (every row, alive columns),
+        the union (core pairs, each once) and the border pass (non-core
+        alive rows, core columns); and the all-pairs count of the three."""
+        k = centers.shape[0]
+        pop_c, _ = neighbor.neighbor_reduce_plain(
+            centers, torch.zeros(k, dtype=torch.int32, device=dev), ccount_c, alive_c,
+            eps2, mode="pop")
+        pop_c = torch.where(centers[:, 0].abs() < 1e37, pop_c, 0.0)
+        core_c = alive_c & (pop_c >= float(min_points))
+        to_core = pair_counts(centers, core_c)
+        selfp = int((core_c & (((centers - centers) ** 2).sum(1) <= eps2)).sum())
+        pairs = (int(pair_counts(centers, alive_c).sum())
+                 + (int(to_core[core_c].sum()) - selfp) // 2
+                 + int(to_core[alive_c & ~core_c].sum()))
+        live, nc = int(alive_c.sum()), int(core_c.sum())
+        return pairs, live * live + nc * nc + live * nc, nc
+
     zeros_i = torch.zeros(m, dtype=torch.int32, device=dev)
     case("neighbor", f"pop M={m} ({n_alive} live)",
          lambda: neighbor.neighbor_reduce(centers_t, zeros_i, ccount, alive, eps2, mode="pop"),
          lambda: neighbor.neighbor_reduce_plain(centers_t, zeros_i, ccount, alive, eps2, mode="pop"),
-         exact("neighbor"), nbytes=m * (12 + 4 + 1 + 4), flops=9.0 * n_alive * n_alive)
+         exact("neighbor"), nbytes=m * (12 + 4 + 1 + 4),
+         pairs=int(pair_counts(centers_t, alive).sum()), all_pairs=n_alive * n_alive)
     pop, _ = neighbor.neighbor_reduce(centers_t, zeros_i, ccount, alive, eps2, mode="pop")
     core = alive & (pop >= float(params.cluster.min_points))
     n_core = int(core.sum())
@@ -609,7 +655,8 @@ def main() -> int:
     case("neighbor", f"lmin M={m}, allowed=core ({n_core})",
          lambda: neighbor.neighbor_reduce(centers_t, iota_m, zeros_f, core, eps2, mode="lmin"),
          lambda: neighbor.neighbor_reduce_plain(centers_t, iota_m, zeros_f, core, eps2, mode="lmin"),
-         exact("neighbor"), nbytes=m * (12 + 4 + 1 + 4), flops=9.0 * n_alive * n_core)
+         exact("neighbor"), nbytes=m * (12 + 4 + 1 + 4),
+         pairs=int(pair_counts(centers_t, core).sum()), all_pairs=n_alive * n_core)
     ccap = min(kw["core_cap"], m)
     (core_rows,), n_core_t, _ = _compact_valid_rows(core, (iota_m,), ccap, fill=m)
     slot_ok = torch.arange(ccap, device=dev) < torch.clamp(n_core_t, max=ccap)
@@ -618,25 +665,30 @@ def main() -> int:
     ).contiguous()
     ones_c = torch.ones(ccap, dtype=torch.float32, device=dev)
     iota_c = torch.arange(ccap, dtype=torch.int32, device=dev)
-
-    def converge_flops(live, n_core_cells):
-        # pop pass + one flood pass per Jacobi round + border pass
-        return 9.0 * (live * live + cluster_converge.rounds * n_core_cells ** 2
-                      + live * n_core_cells)
-
-    cluster_converge.cluster_cells(core_centers, ones_c, slot_ok, iota_c, eps2, 0.0)
-    case("cluster_converge", f"core table {ccap} ({n_core} core), min_points 0",
-         lambda: cluster_converge.cluster_cells(core_centers, ones_c, slot_ok, iota_c, eps2, 0.0),
-         lambda: cluster_converge.cluster_cells_plain(core_centers, ones_c, slot_ok, iota_c, eps2, 0.0),
-         exact("cluster_converge"), nbytes=ccap * (12 + 4 + 1 + 4 + 4 + 4),
-         flops=converge_flops(n_core, n_core))
-    mp = float(params.cluster.min_points)
-    cluster_converge.cluster_cells(centers_t, ccount, alive, iota_m, eps2, mp)
-    case("cluster_converge", f"full table {m}, min_points {params.cluster.min_points}",
-         lambda: cluster_converge.cluster_cells(centers_t, ccount, alive, iota_m, eps2, mp),
-         lambda: cluster_converge.cluster_cells_plain(centers_t, ccount, alive, iota_m, eps2, mp),
-         exact("cluster_converge"), nbytes=m * (12 + 4 + 1 + 4 + 4 + 4),
-         flops=converge_flops(n_alive, n_core), reps=2, plain_reps=1)
+    converge_cases = [
+        (f"core table {ccap}, min_points 0",
+         (core_centers, ones_c, slot_ok, iota_c), 0.0, {}),
+        (f"full table {m}, min_points {params.cluster.min_points}",
+         (centers_t, ccount, alive, iota_m), float(params.cluster.min_points),
+         dict(plain_reps=1)),
+    ]
+    # the fast path's own call: the bench configuration's cell table
+    # (fused_downsample_ground_cluster below core_flood_cells)
+    centers_f, ccount_f, alive_f = frontend_fused.fused_downsample_ground_cluster(
+        xyz_b, mask_b, params, precut_div=precut_div, _cut=4, **bench_kw)
+    mf = centers_f.shape[0]
+    converge_cases.append((
+        f"bench m-table {mf} ({int(alive_f.sum())} live), min_points "
+        f"{params.cluster.min_points}",
+        (centers_f, ccount_f, alive_f, torch.arange(mf, dtype=torch.int32, device=dev)),
+        float(params.cluster.min_points), {}))
+    for label, args, mp, extra in converge_cases:
+        pairs, all_pairs, nc = converge_pairs(args[0], args[1], args[2], mp)
+        case("cluster_converge", f"{label}, {nc} core",
+             lambda a=args, mp=mp: cluster_converge.cluster_cells(*a, eps2, mp),
+             lambda a=args, mp=mp: cluster_converge.cluster_cells_plain(*a, eps2, mp),
+             exact("cluster_converge"), nbytes=args[0].shape[0] * (12 + 4 + 1 + 4 + 4 + 4),
+             pairs=pairs, all_pairs=all_pairs, **extra)
 
     # obb_accum over the cell-sorted rows and their labels
     full = frontend_exact.exact_extract_graph(xyz, mask, params, **kw)

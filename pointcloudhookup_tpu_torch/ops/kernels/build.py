@@ -52,14 +52,14 @@ _SIGNATURES = {
     "pch_compact_rows": (_I32, [_P, _I64, _P, _P, _I32, _P, _I64, _P, _P]),
     "pch_segscan_scratch": (_I64, [_I64]),
     "pch_segscan": (_I32, [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P]),
+    "pch_neighbor_scratch": (_I64, [_I64]),
     "pch_neighbor_reduce": (
-        _I32, [_P, _P, _P, _P, _I64, _F32, _I32, _I32, _P, _P, _P]
+        _I32, [_P, _P, _P, _P, _I64, _P, _I32, _I32, _P, _P, _P, _P]
     ),
-    "pch_cluster_pop": (
-        _I32, [_P, _P, _P, _P, _I64, _F32, _F32, _P, _P, _P, _P]
+    "pch_cluster_cells_scratch": (_I64, [_I64]),
+    "pch_cluster_cells": (
+        _I32, [_P, _P, _P, _P, _I64, _P, _F32, _P, _P, _P, _P]
     ),
-    "pch_cluster_round": (_I32, [_P, _P, _P, _I64, _F32, _P, _P, _P]),
-    "pch_cluster_border": (_I32, [_P, _P, _P, _P, _I64, _F32, _P, _P]),
     "pch_obb_accumulate_xyz": (
         _I32, [_P, _P, _P, _P, _I64, _P, _P, _I32, _I32, _P, _P]
     ),
@@ -184,6 +184,21 @@ def stream(device) -> int:
     """The current CUDA stream of ``device`` as a raw pointer (PyTorch's own
     fast query, without building a Stream object on every launch)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def f32_scalar(value, device) -> torch.Tensor:
+    """value (a number, or a one-element tensor on the CPU or on ``device``)
+    as float32[1] on ``device``, with no host round trip: a tensor already
+    on the card is converted there, a number is filled in by a kernel."""
+    if isinstance(value, torch.Tensor):
+        if value.numel() != 1:
+            raise ValueError("expected a scalar")
+        if value.device == device:
+            return value.to(torch.float32).reshape(1)
+        if value.device.type != "cpu":
+            raise ValueError(f"scalar on {value.device}, inputs on {device}")
+        value = float(value)
+    return torch.full((1,), float(value), dtype=torch.float32, device=device)
 
 
 def require_cuda(name: str, *tensors) -> None:

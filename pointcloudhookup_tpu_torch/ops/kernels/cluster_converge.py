@@ -3,9 +3,10 @@ adoption.
 
 Counterpart of ``pointcloudhookup_tpu/ops/pallas/cluster_converge.py::
 cluster_cells`` with the semantics of its ``cluster_cells_reference``.  The
-CUDA kernels are ``csrc/cluster_converge.cu``: one launch for the
-population, one per Jacobi round (this wrapper loops until a device flag
-stays clear, at most ``max_iter`` rounds), one for the border.
+CUDA kernels are ``csrc/cluster_converge.cu``: six launches in a fixed
+sequence (boxes, pop and core, core boxes, union-find hooks, compression,
+border) and no host synchronisation; the union-find reaches the min-label
+fixpoint of the reference's rounds directly.
 """
 
 from __future__ import annotations
@@ -16,23 +17,31 @@ from pointcloudhookup_tpu_torch.ops.kernels import build
 from pointcloudhookup_tpu_torch.ops.kernels.neighbor import eps_ball_reduce_plain
 
 launches = 0  # cluster_cells calls that ran the kernels (read and reset by chip_smoke.py)
-rounds = 0  # Jacobi rounds of the last such call (chip_smoke.py's bound)
 
 
 def cluster_cells(centers, ccount, alive, labels0, eps2, min_points, *,
                   max_iter: int | None = None):
     """centers float32[M,3] (dead rows at +3e38), ccount float32[M], alive
     bool[M], labels0 int32[M] seed labels (used on rows that turn out
-    core).  Returns (labels int32[M] in [0, M) with M = no cluster,
-    pop float32[M])."""
+    core), eps2 a number or a one-element tensor.  Returns (labels int32[M]
+    in [0, M) with M = no cluster, pop float32[M]).
+
+    max_iter bounds the plain version's min-label rounds.  The kernels run
+    no rounds: they compute the fixpoint, which max_iter=None or >= M
+    reaches, and a smaller max_iter raises on the card (a truncated flood is
+    no shared contract: the TPU kernel's sweeps and the reference's rounds
+    truncate differently)."""
     m = centers.shape[0]
-    if max_iter is None:
-        max_iter = m  # worst-case chain length
     if centers.device.type == "cpu":
         return cluster_cells_plain(
             centers, ccount, alive, labels0, eps2, min_points, max_iter=max_iter
         )
-    global launches, rounds
+    if max_iter is not None and max_iter < m:
+        raise ValueError(
+            f"cluster_cells: max_iter={max_iter} < M={m}; the CUDA kernels "
+            "compute the fixpoint (no rounds to truncate)"
+        )
+    global launches
     build.require_cuda("cluster_cells", centers, ccount, alive, labels0)
     if centers.dtype != torch.float32 or centers.shape != (m, 3):
         raise ValueError("centers must be float32[M, 3]")
@@ -44,39 +53,17 @@ def cluster_cells(centers, ccount, alive, labels0, eps2, min_points, *,
         raise ValueError("labels0 must be int32[M]")
     lib = build.library()
     dev = centers.device
-    st = build.stream(dev)
-    eps2 = float(eps2)
+    eps2 = build.f32_scalar(eps2, dev)
+    scratch = torch.empty(lib.pch_cluster_cells_scratch(m), dtype=torch.uint8, device=dev)
     pop = torch.empty(m, dtype=torch.float32, device=dev)
-    core = torch.empty(m, dtype=torch.bool, device=dev)
-    cur = torch.empty(m, dtype=torch.int32, device=dev)
-    nxt = torch.empty_like(cur)
-    changed = torch.empty(1, dtype=torch.int32, device=dev)
-    build.check(
-        lib.pch_cluster_pop(
-            centers.data_ptr(), ccount.data_ptr(), alive.data_ptr(),
-            labels0.data_ptr(), m, eps2, float(min_points), pop.data_ptr(),
-            core.data_ptr(), cur.data_ptr(), st,
-        ),
-        "cluster_cells pop",
-    )
-    for rounds in range(1, max_iter + 1):
-        build.check(
-            lib.pch_cluster_round(
-                centers.data_ptr(), core.data_ptr(), cur.data_ptr(), m, eps2,
-                nxt.data_ptr(), changed.data_ptr(), st,
-            ),
-            "cluster_cells round",
-        )
-        cur, nxt = nxt, cur
-        if int(changed.item()) == 0:
-            break
     labels = torch.empty(m, dtype=torch.int32, device=dev)
     build.check(
-        lib.pch_cluster_border(
-            centers.data_ptr(), core.data_ptr(), alive.data_ptr(),
-            cur.data_ptr(), m, eps2, labels.data_ptr(), st,
+        lib.pch_cluster_cells(
+            centers.data_ptr(), ccount.data_ptr(), alive.data_ptr(),
+            labels0.data_ptr(), m, eps2.data_ptr(), float(min_points),
+            scratch.data_ptr(), pop.data_ptr(), labels.data_ptr(), build.stream(dev),
         ),
-        "cluster_cells border",
+        "cluster_cells",
     )
     launches += 1
     return labels, pop

@@ -1,8 +1,9 @@
 """Fused eps-neighborhood population + min-label reduction.
 
 Counterpart of ``pointcloudhookup_tpu/ops/pallas/neighbor.py::
-neighbor_reduce``.  The CUDA kernel is ``csrc/neighbor.cu``.  The plain
-PyTorch version ``eps_ball_reduce_plain`` is shared with
+neighbor_reduce``.  The CUDA kernel is ``csrc/neighbor.cu``: a box prepass
+and the culled pair pass of ``csrc/eps_ball.cuh`` (two launches, one
+count).  The plain PyTorch version ``eps_ball_reduce_plain`` is shared with
 ``cluster_converge.py``: rows in chunks (a dense [65536, 65536] d2 would
 take 17 GB) against the allowed columns near the chunk only, which leaves
 pop and lmin unchanged.
@@ -26,9 +27,12 @@ def neighbor_reduce(xyz, labels, weights, allowed, eps2, *, sentinel=None,
     lmin[i] = min label_j over the same set (``sentinel`` if empty).
 
     xyz float32[M,3], labels int32[M], weights float32[M], allowed bool[M];
+    eps2 a number or a one-element tensor (read on the card: no host sync);
     d2 from coordinate differences.  mode "pop" / "lmin" skips the other
     reduction, whose output then holds its identity (zeros / sentinel).
-    Returns (pop float32[M], lmin int32[M])."""
+    The kernel adds pop's terms in another order than the plain version:
+    identical for integer-valued weights (every caller's), within the f32
+    summation bound otherwise.  Returns (pop float32[M], lmin int32[M])."""
     if mode not in _MODES:
         raise ValueError(f"bad mode {mode!r}")
     m = xyz.shape[0]
@@ -49,12 +53,15 @@ def neighbor_reduce(xyz, labels, weights, allowed, eps2, *, sentinel=None,
     if allowed.dtype != torch.bool or allowed.shape != (m,):
         raise ValueError("allowed must be bool[M]")
     lib = build.library()
-    pop = torch.empty(m, dtype=torch.float32, device=xyz.device)
-    lmin = torch.empty(m, dtype=torch.int32, device=xyz.device)
+    dev = xyz.device
+    eps2 = build.f32_scalar(eps2, dev)
+    scratch = torch.empty(lib.pch_neighbor_scratch(m), dtype=torch.uint8, device=dev)
+    pop = torch.empty(m, dtype=torch.float32, device=dev)
+    lmin = torch.empty(m, dtype=torch.int32, device=dev)
     rc = lib.pch_neighbor_reduce(
         xyz.data_ptr(), labels.data_ptr(), weights.data_ptr(),
-        allowed.data_ptr(), m, float(eps2), int(sentinel), _MODES[mode],
-        pop.data_ptr(), lmin.data_ptr(), build.stream(xyz.device),
+        allowed.data_ptr(), m, eps2.data_ptr(), int(sentinel), _MODES[mode],
+        scratch.data_ptr(), pop.data_ptr(), lmin.data_ptr(), build.stream(dev),
     )
     build.check(rc, "neighbor_reduce")
     launches += 1

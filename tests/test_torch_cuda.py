@@ -82,6 +82,49 @@ def cells(seed, m, n_alive, dead_allowed=False):
     return centers, ccount, alive
 
 
+def morton_cells(seed, m, live_frac, dead_allowed=False):
+    """Cell centers on cells()'s 2.5 lattice over a cube of about 2 m
+    lattice points, in the order of an interleaved (Morton) cell key as the
+    dense-cell tables are, so a 32-row subtile is spatially compact and the
+    kernels' culling culls.  The first live_frac * m rows are live, the rest
+    dead at +3e38 (dead_allowed: the last three allowed all the same)."""
+    rng = np.random.default_rng(seed)
+    n_alive = int(round(live_frac * m))
+    side = max(2, int(np.ceil((2 * m) ** (1 / 3))))
+    ij = rng.integers(0, side, size=(n_alive, 3))
+    key = np.zeros(n_alive, np.int64)
+    for b in range(int(side).bit_length()):
+        for a in range(3):
+            key |= ((ij[:, a] >> b) & 1) << (3 * b + a)
+    ij = ij[np.argsort(key, kind="stable")]
+    centers = np.full((m, 3), BIG, np.float32)
+    centers[:n_alive] = (ij.astype(np.float32) + np.float32(0.5)) * np.float32(2.5)
+    alive = np.arange(m) < n_alive
+    ccount = np.where(alive, rng.integers(1, 20, m), 0).astype(np.float32)
+    if dead_allowed:
+        alive[-3:] = True
+    return centers, ccount, alive
+
+
+def chain_cells(m):
+    """m live cells in a line one cell wide, 2.5 apart: with eps 5 each
+    meets the two on either side, so one component spans the chain and the
+    min-label rounds need ~m / 2 of them."""
+    centers = np.full((m, 3), np.float32(1.25), np.float32)
+    centers[:, 0] = (np.arange(m, dtype=np.float32) + np.float32(0.5)) * np.float32(2.5)
+    return centers, np.ones(m, np.float32), np.ones(m, bool)
+
+
+def shared_tile_cells(seed, m):
+    """Rows that take turns between four clusters 100 apart (and a few
+    isolated cells): every 32-row subtile holds rows of several components."""
+    rng = np.random.default_rng(seed)
+    base = np.array([[0, 0, 0], [100, 0, 0], [0, 100, 0], [100, 100, 50]], np.float32)
+    centers = base[np.arange(m) % 4] + rng.integers(0, 4, (m, 3)).astype(np.float32) * 2.5
+    centers[::97] += np.float32(1000.0) * np.arange(1, len(centers[::97]) + 1)[:, None]
+    return centers.astype(np.float32), np.ones(m, np.float32), np.ones(m, bool)
+
+
 def obb_inputs(seed, size, k):
     rng = np.random.default_rng(seed)
     xyz = rng.uniform(-50, 50, size=(size, 3)).astype(np.float32)
@@ -275,6 +318,134 @@ def test_cluster_cells_kernel_matches_plain(cuda, min_points):
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+TABLES = {  # id: () -> (centers, ccount, alive)
+    **{f"morton-{m}-live{f}": (lambda m=m, f=f: morton_cells(19, m, f, dead_allowed=f < 1))
+       for m in (2048, 4096, 65536) for f in (0.6, 1.0)},
+    "all-dead": lambda: cells(20, 1000, 0),
+    "all-dead-allowed": lambda: cells(20, 1000, 0, dead_allowed=True),
+    "m7": lambda: cells(21, 7, 5, dead_allowed=True),
+    "m1013": lambda: morton_cells(22, 1013, 0.7, dead_allowed=True),
+    "m70001": lambda: morton_cells(33, 70001, 0.8, dead_allowed=True),
+    "shared-tiles": lambda: shared_tile_cells(23, 3000),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["both", "pop", "lmin"])
+@pytest.mark.parametrize("table", list(TABLES), ids=list(TABLES))
+def test_neighbor_kernel_culled_tables(cuda, table, mode):
+    """Cell-ordered tables (the kernel culls), a table with every row dead,
+    tables shorter than one 32-row subtile or not a multiple of it, one
+    past the 65,536 columns the kernel lists at a time, and several
+    components in each subtile; labels a permutation, and in lmin mode also
+    a sparse allowed set (as the border pass's core cells)."""
+    centers, ccount, alive = TABLES[table]()
+    m = len(centers)
+    rng = np.random.default_rng(24)
+    labels = rng.permutation(m).astype(np.int32)
+    allowed_sets = [alive]
+    if mode == "lmin":
+        allowed_sets.append(alive & (rng.random(m) < 0.1))
+    for allowed in allowed_sets:
+        args = (t(centers, cuda), t(labels, cuda), t(ccount, cuda), t(allowed, cuda))
+        eps2 = torch.tensor(25.0, device=cuda)
+        got = neighbor.neighbor_reduce(*args, eps2, sentinel=m, mode=mode)
+        ref = neighbor.neighbor_reduce_plain(*args, 25.0, sentinel=m, mode=mode)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_neighbor_kernel_fractional_weights(cuda):
+    """Weights that are not integers: the kernel adds each row's terms in
+    another order, so pop agrees to the f32 summation bound, 2 n u sum|w|
+    (n terms, u = 2**-24, for each of the two orders); lmin exactly."""
+    centers, _, alive = morton_cells(25, 4096, 0.8)
+    m = len(centers)
+    w = np.random.default_rng(26).random(m).astype(np.float32)
+    labels = np.random.default_rng(27).permutation(m).astype(np.int32)
+    args = (t(centers, cuda), t(labels, cuda), t(w, cuda), t(alive, cuda), 25.0)
+    pop, lmin = neighbor.neighbor_reduce(*args, sentinel=m)
+    ref_pop, ref_lmin = neighbor.neighbor_reduce_plain(*args, sentinel=m)
+    cnt, _ = neighbor.neighbor_reduce_plain(
+        t(centers, cuda), t(labels, cuda), torch.ones(m, device=cuda), t(alive, cuda),
+        25.0, sentinel=m, mode="pop")
+    bound = 2.0 * cnt.double() * 2.0**-24 * ref_pop.double()
+    assert bool(((pop.double() - ref_pop.double()).abs() <= bound).all())
+    assert torch.equal(lmin, ref_lmin)
+
+
+CLUSTER_TABLES = {  # id: (table, min_points)
+    **{f"{table}-mp{mp}": (table, mp) for table in TABLES if table.startswith("morton")
+       for mp in (0.0, 120.0)},
+    "chain3000": ("chain", 0.0),
+    "shared-tiles": ("shared-tiles", 0.0),
+    "all-dead": ("all-dead", 0.0),
+    "all-dead-allowed": ("all-dead-allowed", 0.0),
+    "m7": ("m7", 0.0),
+    "m1013": ("m1013", 40.0),
+    "m70001": ("m70001", 120.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CLUSTER_TABLES), ids=list(CLUSTER_TABLES))
+def test_cluster_cells_kernel_culled_tables(cuda, case):
+    """The union-find against the plain min-label rounds: cell-ordered
+    tables with and without the core rule, a chain of 3,000 cells one cell
+    wide (one component whose rounds run ~1,500 deep) with a random
+    labels0, several components in each subtile, every row dead, and
+    tables off the 32-row subtile."""
+    table, min_points = CLUSTER_TABLES[case]
+    centers, ccount, alive = chain_cells(3000) if table == "chain" else TABLES[table]()
+    m = len(centers)
+    labels0 = np.random.default_rng(28).permutation(m).astype(np.int32)
+    args = (t(centers, cuda), t(ccount, cuda), t(alive, cuda), t(labels0, cuda))
+    got = cluster_converge.cluster_cells(*args, torch.tensor(25.0, device=cuda), min_points)
+    ref = cluster_converge.cluster_cells_plain(*args, 25.0, min_points)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if table == "chain":
+        assert int(got[0].unique().numel()) == 1
+
+
+@pytest.mark.cuda
+def test_pair_kernels_make_no_host_sync(cuda):
+    """cluster_cells and neighbor_reduce read eps2 on the card and launch
+    with no device-to-host read, whether eps2 is a device tensor or a
+    number."""
+    centers, ccount, alive = morton_cells(29, 4096, 0.9)
+    m = len(centers)
+    xyz, w, al = t(centers, cuda), t(ccount, cuda), t(alive, cuda)
+    iota = torch.arange(m, dtype=torch.int32, device=cuda)
+    eps2 = torch.tensor(25.0, device=cuda)
+    cluster_converge.cluster_cells(xyz, w, al, iota, eps2, 40.0)  # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for e2 in (eps2, 25.0):
+            labels, _ = cluster_converge.cluster_cells(xyz, w, al, iota, e2, 40.0)
+            pop, _ = neighbor.neighbor_reduce(xyz, iota, w, al, e2, mode="pop")
+            neighbor.neighbor_reduce(xyz, labels, w, al, e2, sentinel=m, mode="lmin")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = cluster_converge.cluster_cells_plain(xyz, w, al, iota, 25.0, 40.0)
+    assert torch.equal(labels, ref[0]) and torch.equal(pop, ref[1])
+
+
+@pytest.mark.cuda
+def test_cluster_cells_kernel_refuses_truncated_rounds(cuda):
+    centers, ccount, alive = chain_cells(100)
+    args = (t(centers, cuda), t(ccount, cuda), t(alive, cuda),
+            torch.arange(100, dtype=torch.int32, device=cuda), 25.0, 0.0)
+    with pytest.raises(ValueError, match="max_iter"):
+        cluster_converge.cluster_cells(*args, max_iter=10)
+    labels, _ = cluster_converge.cluster_cells(*args, max_iter=100)
+    assert int(labels.max()) == 0
 
 
 @pytest.mark.cuda

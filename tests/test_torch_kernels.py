@@ -43,8 +43,10 @@ from test_torch_cuda import (
     BIG,
     assert_acc_close,
     cells,
+    chain_cells,
     compact_inputs,
     flag_inputs,
+    morton_cells,
     morton_inputs,
     n,
     obb_inputs,
@@ -137,6 +139,47 @@ def test_cluster_cells_plain_matches_reference(min_points, n_alive):
     np.testing.assert_array_equal(n(lab), np.asarray(ref_lab))
     if min_points > 1e8:
         assert (n(lab) == m).all()
+
+
+@pytest.mark.parametrize("mode", ["both", "pop", "lmin"])
+def test_neighbor_plain_matches_reference_on_a_morton_table(mode):
+    """The cell-ordered table the card tests cull on (a Morton-sorted
+    lattice, dead rows at +3e38 and three of them allowed)."""
+    m = 2048
+    centers, ccount, alive = morton_cells(30, m, 0.6, dead_allowed=True)
+    labels = np.random.default_rng(31).permutation(m).astype(np.int32)
+    eps2 = np.float32(25.0)
+    ref_pop, ref_lmin = neighbor_reduce_reference(
+        jnp.asarray(centers), jnp.asarray(labels), jnp.asarray(ccount),
+        jnp.asarray(alive), eps2, sentinel=m,
+    )
+    pop, lmin = neighbor.neighbor_reduce_plain(
+        t(centers), t(labels), t(ccount), t(alive), eps2, sentinel=m, mode=mode,
+    )
+    want_pop = np.asarray(ref_pop) if mode != "lmin" else np.zeros(m, np.float32)
+    want_lmin = np.asarray(ref_lmin) if mode != "pop" else np.full(m, m, np.int32)
+    np.testing.assert_array_equal(n(pop), want_pop)
+    np.testing.assert_array_equal(n(lmin), want_lmin)
+
+
+def test_cluster_cells_plain_matches_reference_on_a_chain():
+    """A chain of 1,000 cells one cell wide with a random labels0: one
+    component whose min-label rounds run ~500 deep, the card tests'
+    yardstick for the union-find."""
+    m = 1000
+    centers, ccount, alive = chain_cells(m)
+    labels0 = np.random.default_rng(32).permutation(m).astype(np.int32)
+    eps2 = np.float32(25.0)
+    ref_lab, ref_pop = cluster_cells_reference(
+        jnp.asarray(centers), jnp.asarray(ccount), jnp.asarray(alive),
+        jnp.asarray(labels0), eps2, 0.0,
+    )
+    lab, pop = cluster_converge.cluster_cells_plain(
+        t(centers), t(ccount), t(alive), t(labels0), eps2, 0.0
+    )
+    np.testing.assert_array_equal(n(pop), np.asarray(ref_pop))
+    np.testing.assert_array_equal(n(lab), np.asarray(ref_lab))
+    assert (n(lab) == labels0.min()).all()
 
 
 @pytest.mark.parametrize("all_noise", [False, True], ids=["mixed", "all-noise"])
