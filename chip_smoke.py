@@ -50,8 +50,9 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      pair kernels 9 operations for each pair within eps that the function
      needs, counted by the plain version's walk, beside the all-pairs
      count). Phase 3 also profiles one exact graph run (device ms by
-     kernel) and runs cluster_converge at the fast path's own call, the
-     bench configuration's 4,096-row cell table.
+     kernel), runs cluster_converge at the fast path's own call, the
+     bench configuration's 4,096-row cell table, and winsort at W 2,048
+     and 32,768 (chunked passes through a scratch buffer) besides W 256.
 
 Launch counts are reset just before each path's run (1, 4, 5, each mode of
 7) and read just after.  Prints the card's name and power limit, one JSON line of
@@ -811,6 +812,18 @@ def main() -> int:
          lambda: winsort.window_sort_w_plain(k1, w16, 256),
          exact("winsort"), nbytes=N_POINTS * (4 + 2 + 4),
          library_fn=lambda: (keys0.view(-1, 256).sort(dim=1), keys_mid.view(-1, 256).sort(dim=1)))
+    # hier_window takes any even size: a window one block sorts in shared
+    # memory (2,048) and one above 4,096 rows, sorted in chunked passes
+    nw = 1 << 20
+    k1w, w16w = k1[:nw], w16[:nw]
+    for ww in (2048, 32768):
+        keys_w = winsort.packed_windows(k1w, w16w, ww)
+        case("winsort", f"hier keys, rows {nw}, W {ww}",
+             lambda ww=ww: winsort.window_sort_w(k1w, w16w, ww),
+             lambda ww=ww: winsort.window_sort_w_plain(k1w, w16w, ww),
+             exact("winsort"), nbytes=nw * (4 + 2 + 4),
+             library_fn=lambda ww=ww, kw=keys_w: (
+                 kw.view(-1, ww).sort(dim=1), kw[ww // 2:-ww // 2].view(-1, ww).sort(dim=1)))
     packed = (hi0.to(torch.int64) << 30) | lo0.to(torch.int64)
     merge_case = case("mergesort", f"Morton (hi, lo)[{N_POINTS}], block 8192",
                       lambda: mergesort.merge_sort_2key(hi0, lo0),

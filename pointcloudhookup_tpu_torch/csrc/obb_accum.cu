@@ -14,26 +14,38 @@
 // TPU kernel computes it (obb_accum.py:141-143, 204-205); the product and
 // sum round once, as XLA:CPU compiles that line (a fused multiply-add).
 //
-// Bound: atomics.  Every row of a cluster updates the same 4 x A
-// addresses, so a row-per-thread atomic pass would issue ~1e3 atomics per
-// row (~3e8 at the 4M tile), all contending.  The TPU kernel had no
-// atomics and walked each block's label range with one-hot masked
-// combines.  Here rows arrive cell-sorted, so labels are constant over
-// long runs (obb_accum.py:5-10): a block stages a 512-row tile in shared
-// memory and each thread owns one angle, walks the tile in order, and
-// reduces each label run in registers before flushing ONE atomic per
-// (run, angle, statistic).  A warp-shuffle pre-reduction would divide the
-// atomics by 32; the run walk divides them by the run length (up to 512).
-// Thread 0 also reduces the per-cluster sums and z extremes of each run.
-// Tiles with no labelled row exit after one barrier.  Float min/max
-// atomics use the ordered-integer trick with -0.0 folded to +0.0.  The two
-// variants share the tile walk and differ only in the row loader.
+// Bound: the projections.  Each labelled row costs 4 products, 2 sums and
+// 4 min/max per angle (~79 M (row, angle) pairs at the paths' shapes, 16
+// MB of rows at most): ~0.03 ms at the card's full instruction rate.
+// The TPU kernel had no atomics and walked each block's label range with
+// one-hot masked combines.  Here
+// rows arrive cell-sorted, so labels are constant over long runs
+// (obb_accum.py:5-10), and every lane stays on projections:
+//   * one warp takes a chunk of 64 rows: each lane loads 2, a ballot
+//     compacts the labelled ones in order into the warp's shared staging
+//     buffer (x, y, z and the label in one float4).  Unlabelled rows cost
+//     their load and nothing else; a chunk with none returns at once.
+//     Small chunks and small blocks (4 warps) let the block scheduler
+//     spread the labelled regions over the card: longer spans a warp, or
+//     persistent warps, left whole SMs on one dense region;
+//   * lane l owns angles l, l + 32, ... (NQ <= 8 of them, cos/sin and the
+//     four extremes in registers), so one broadcast shared load serves
+//     NQ angles; rows go two at a time, with no branch between angles;
+//   * the six per-cluster statistics are a segmented warp reduction of the
+//     staged rows (shuffles over run heads), 32 at a time;
+//   * each (run, angle, statistic) flushes ONE atomic a chunk, when the
+//     label changes and at the chunk's end.
+// A > 256 walks the staged rows again per 256 angles.  Float min/max
+// atomics use the ordered-integer trick with -0.0 folded to +0.0.  The
+// two variants share the walk and differ only in the row loader.  Two
+// launches a call: the output's initial values, then the walk.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kRows = 512;
-constexpr int kThreads = 256;
+constexpr int kWarps = 4;              // warps a block
+constexpr int kPerLane = 2;            // rows a lane loads
+constexpr int kChunk = 32 * kPerLane;  // rows a warp walks
 constexpr float kBig = 3.0e38f;
 
 __device__ __forceinline__ void atomic_min_f(float* addr, float v) {
@@ -118,125 +130,233 @@ struct MortonRows {
   }
 };
 
-template <class Rows>
-__global__ void accum_kernel(Rows rows, const int* __restrict__ labels,
-                             long long n, const float* __restrict__ cos_a,
-                             const float* __restrict__ sin_a, int k, int a,
-                             float* __restrict__ out) {
-  __shared__ float sx[kRows];
-  __shared__ float sy[kRows];
-  __shared__ float sz[kRows];
-  __shared__ int sl[kRows];
-  const long long r0 = static_cast<long long>(blockIdx.x) * kRows;
-  const long long rest = n - r0;
-  const int len = rest < kRows ? static_cast<int>(rest) : kRows;
-  int any = 0;
-  for (int r = threadIdx.x; r < len; r += kThreads) {
-    int l = labels[r0 + r];
-    if (l >= k || l < 0) l = -1;
-    sl[r] = l;
-    rows.load(r0 + r, sx[r], sy[r], sz[r]);
-    any |= l >= 0;
+// The six per-cluster statistics of a run.
+struct Stat {
+  float c, sx, sy, sz, lo, hi;
+  __device__ __forceinline__ static Stat empty() {
+    return Stat{0.f, 0.f, 0.f, 0.f, kBig, -kBig};
   }
-  if (!__syncthreads_or(any)) return;
+  __device__ __forceinline__ Stat plus(const Stat& o) const {
+    return Stat{__fadd_rn(c, o.c),   __fadd_rn(sx, o.sx), __fadd_rn(sy, o.sy),
+                __fadd_rn(sz, o.sz), fminf(lo, o.lo),     fmaxf(hi, o.hi)};
+  }
+  __device__ __forceinline__ Stat shfl_up(int d) const {
+    return Stat{__shfl_up_sync(pch::kFullMask, c, d),
+                __shfl_up_sync(pch::kFullMask, sx, d),
+                __shfl_up_sync(pch::kFullMask, sy, d),
+                __shfl_up_sync(pch::kFullMask, sz, d),
+                __shfl_up_sync(pch::kFullMask, lo, d),
+                __shfl_up_sync(pch::kFullMask, hi, d)};
+  }
+  __device__ __forceinline__ Stat shfl(int src) const {
+    return Stat{__shfl_sync(pch::kFullMask, c, src),
+                __shfl_sync(pch::kFullMask, sx, src),
+                __shfl_sync(pch::kFullMask, sy, src),
+                __shfl_sync(pch::kFullMask, sz, src),
+                __shfl_sync(pch::kFullMask, lo, src),
+                __shfl_sync(pch::kFullMask, hi, src)};
+  }
+};
 
-  const long long ka = static_cast<long long>(k) * a;
-  float* cnt = out;
-  float* sumx = out + k;
-  float* sumy = out + 2 * k;
-  float* sumz = out + 3 * k;
-  float* zlo = out + 4 * k;
-  float* zhi = out + 5 * k;
-  float* ulo = out + 6 * k;
-  float* uhi = ulo + ka;
-  float* vlo = uhi + ka;
-  float* vhi = vlo + ka;
+struct Out {
+  float *cnt, *sumx, *sumy, *sumz, *zlo, *zhi, *ulo, *uhi, *vlo, *vhi;
+  int a;
+  __device__ __forceinline__ void flush(int l, const Stat& s) const {
+    atomicAdd(cnt + l, s.c);
+    atomicAdd(sumx + l, s.sx);
+    atomicAdd(sumy + l, s.sy);
+    atomicAdd(sumz + l, s.sz);
+    atomic_min_f(zlo + l, s.lo);
+    atomic_max_f(zhi + l, s.hi);
+  }
+};
 
-  if (threadIdx.x == 0) {
-    int cur = -1;
-    float c = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, lo = kBig, hi = -kBig;
-    for (int r = 0; r <= len; ++r) {
-      const int l = r < len ? sl[r] : -1;
-      if (l != cur) {
-        if (cur >= 0) {
-          atomicAdd(cnt + cur, c);
-          atomicAdd(sumx + cur, s1);
-          atomicAdd(sumy + cur, s2);
-          atomicAdd(sumz + cur, s3);
-          atomic_min_f(zlo + cur, lo);
-          atomic_max_f(zhi + cur, hi);
-        }
-        cur = l;
-        c = s1 = s2 = s3 = 0.f;
-        lo = kBig;
-        hi = -kBig;
-      }
-      if (l >= 0) {
-        c = __fadd_rn(c, 1.f);
-        s1 = __fadd_rn(s1, sx[r]);
-        s2 = __fadd_rn(s2, sy[r]);
-        s3 = __fadd_rn(s3, sz[r]);
-        lo = fminf(lo, sz[r]);
-        hi = fmaxf(hi, sz[r]);
-      }
+// One warp a chunk of kChunk rows: stage its labelled rows, reduce their
+// per-cluster statistics, then walk them once per block of 32 * NQ angles.
+template <class Rows, int NQ>
+__global__ void __launch_bounds__(kWarps * 32)
+    accum_kernel(Rows rows, const int* __restrict__ labels, long long n,
+                 const float* __restrict__ cos_a,
+                 const float* __restrict__ sin_a, int k, Out out) {
+  // the staged rows of each warp: x, y, z and the label's bits
+  __shared__ float4 stages[kWarps][kChunk];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float4* st = stages[warp];
+  const long long c0 = (static_cast<long long>(blockIdx.x) * kWarps + warp) * kChunk;
+  if (c0 >= n) return;
+
+  // stage the chunk's labelled rows, in order
+  int staged = 0;
+#pragma unroll
+  for (int q = 0; q < kPerLane; ++q) {
+    const long long i = c0 + q * 32 + lane;
+    const int l = i < n ? labels[i] : -1;
+    const bool keep = l >= 0 && l < k;
+    const unsigned m = __ballot_sync(pch::kFullMask, keep);
+    if (keep) {
+      float4 row;
+      rows.load(i, row.x, row.y, row.z);
+      row.w = __int_as_float(l);
+      st[staged + __popc(m & ((1u << lane) - 1u))] = row;
+    }
+    staged += __popc(m);
+  }
+  __syncwarp();
+  if (staged == 0) return;
+
+  // the per-cluster statistics: a segmented warp reduction of the staged
+  // rows, 32 at a time; a run still open at a group's end carries over
+  int carry_l = -1;
+  Stat carry = Stat::empty();
+  for (int g = 0; g < staged; g += 32) {
+    const int nv = staged - g < 32 ? staged - g : 32;
+    const bool valid = lane < nv;
+    int l = -2;
+    Stat s = Stat::empty();
+    if (valid) {
+      const float4 row = st[g + lane];
+      l = __float_as_int(row.w);
+      s = Stat{1.f, row.x, row.y, row.z, row.z, row.z};
+    }
+    const int prev = __shfl_up_sync(pch::kFullMask, l, 1);
+    const int next = __shfl_down_sync(pch::kFullMask, l, 1);
+    const bool head = valid && (lane == 0 || prev != l);
+    const bool tail = valid && (lane == nv - 1 || next != l);
+    const unsigned heads = __ballot_sync(pch::kFullMask, head);
+    const unsigned tails = __ballot_sync(pch::kFullMask, tail);
+    const unsigned upto = lane == 31 ? ~0u : (2u << lane) - 1u;
+    const int seg = 31 - __clz(heads & upto);  // this lane's run head
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Stat o = s.shfl_up(d);
+      if (lane - d >= seg) s = o.plus(s);
+    }
+    const int t0 = __ffs(tails) - 1;  // the first run's last lane
+    const int l0 = __shfl_sync(pch::kFullMask, l, 0);
+    Stat s0 = s.shfl(t0);
+    if (l0 == carry_l) {
+      s0 = carry.plus(s0);
+    } else if (carry_l >= 0 && lane == 0) {
+      out.flush(carry_l, carry);
+    }
+    if (t0 == nv - 1) {  // one run: it stays open
+      carry = s0;
+      carry_l = l0;
+    } else {
+      if (lane == 0) out.flush(l0, s0);
+      if (tail && lane != t0 && lane != nv - 1) out.flush(l, s);
+      carry = s.shfl(nv - 1);
+      carry_l = __shfl_sync(pch::kFullMask, l, nv - 1);
     }
   }
+  if (lane == 0) out.flush(carry_l, carry);
 
-  for (int j = threadIdx.x; j < a; j += kThreads) {
-    const float ca = cos_a[j];
-    const float sa = sin_a[j];
-    int cur = -1;
-    float u_lo = kBig, u_hi = -kBig, v_lo = kBig, v_hi = -kBig;
-    for (int r = 0; r <= len; ++r) {
-      const int l = r < len ? sl[r] : -1;
-      if (l != cur) {
-        if (cur >= 0) {
-          const long long o = static_cast<long long>(cur) * a + j;
-          atomic_min_f(ulo + o, u_lo);
-          atomic_max_f(uhi + o, u_hi);
-          atomic_min_f(vlo + o, v_lo);
-          atomic_max_f(vhi + o, v_hi);
-        }
-        cur = l;
-        u_lo = v_lo = kBig;
-        u_hi = v_hi = -kBig;
-      }
-      if (l >= 0) {
-        const float px = sx[r];
-        const float py = sy[r];
-        const float u = __fadd_rn(__fmul_rn(px, ca), __fmul_rn(py, sa));
-        const float v = __fsub_rn(__fmul_rn(py, ca), __fmul_rn(px, sa));
-        u_lo = fminf(u_lo, u);
-        u_hi = fmaxf(u_hi, u);
-        v_lo = fminf(v_lo, v);
-        v_hi = fmaxf(v_hi, v);
-      }
+  // the angle walk: broadcast rows, two at a time, NQ angles a lane
+  const int a = out.a;
+  for (int j0 = 0; j0 < a; j0 += 32 * NQ) {
+    float ca[NQ], sa[NQ], ulo[NQ], uhi[NQ], vlo[NQ], vhi[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int j = j0 + q * 32 + lane;
+      ca[q] = j < a ? cos_a[j] : 0.f;  // angles past A project to 0
+      sa[q] = j < a ? sin_a[j] : 0.f;
+      ulo[q] = vlo[q] = kBig;
+      uhi[q] = vhi[q] = -kBig;
     }
+    auto flush = [&](int l) {
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int j = j0 + q * 32 + lane;
+        if (j < a) {
+          const long long o = static_cast<long long>(l) * a + j;
+          atomic_min_f(out.ulo + o, ulo[q]);
+          atomic_max_f(out.uhi + o, uhi[q]);
+          atomic_min_f(out.vlo + o, vlo[q]);
+          atomic_max_f(out.vhi + o, vhi[q]);
+        }
+        ulo[q] = vlo[q] = kBig;
+        uhi[q] = vhi[q] = -kBig;
+      }
+    };
+    auto project = [&](float px, float py) {
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const float u = __fadd_rn(__fmul_rn(px, ca[q]), __fmul_rn(py, sa[q]));
+        const float v = __fsub_rn(__fmul_rn(py, ca[q]), __fmul_rn(px, sa[q]));
+        ulo[q] = fminf(ulo[q], u);
+        uhi[q] = fmaxf(uhi[q], u);
+        vlo[q] = fminf(vlo[q], v);
+        vhi[q] = fmaxf(vhi[q], v);
+      }
+    };
+    int cur = __float_as_int(st[0].w);  // the open run
+    int r = 0;
+    for (; r + 1 < staged; r += 2) {
+      const float4 p0 = st[r];
+      const float4 p1 = st[r + 1];
+      const int l0 = __float_as_int(p0.w);
+      const int l1 = __float_as_int(p1.w);
+      if (l0 != cur) {
+        flush(cur);
+        cur = l0;
+      }
+      project(p0.x, p0.y);
+      if (l1 != cur) {
+        flush(cur);
+        cur = l1;
+      }
+      project(p1.x, p1.y);
+    }
+    if (r < staged) {
+      const float4 p0 = st[r];
+      const int l0 = __float_as_int(p0.w);
+      if (l0 != cur) {
+        flush(cur);
+        cur = l0;
+      }
+      project(p0.x, p0.y);
+    }
+    flush(cur);
   }
 }
 
-// out: float32[6k + 4ka], initialized here; then one pass over the rows.
+// out: float32[6k + 4ka], initialized here; then the walk.
 template <class Rows>
 int launch(Rows rows, const int* labels, long long n, const float* cos_a,
            const float* sin_a, int k, int a, float* out, void* stream) {
   if (n < 0 || k < 0 || a < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = 6LL * k + 4LL * k * a;
+  const long long ka = static_cast<long long>(k) * a;
+  const long long total = 6LL * k + 4LL * ka;
   if (total > 0) {
     int grid = pch::blocks_for(total, 256);
     if (grid > 1024) grid = 1024;
     init_kernel<<<grid, 256, 0, s>>>(out, k, a);
   }
-  if (n > 0 && k > 0) {
-    accum_kernel<<<pch::blocks_for(n, kRows), kThreads, 0, s>>>(
-        rows, labels, n, cos_a, sin_a, k, a, out);
+  if (n > 0 && k > 0 && a > 0) {
+    const Out o{out,          out + k,      out + 2 * k,  out + 3 * k,
+                out + 4 * k,  out + 5 * k,  out + 6 * k,  out + 6 * k + ka,
+                out + 6 * k + 2 * ka, out + 6 * k + 3 * ka, a};
+    const int grid = pch::blocks_for(n, static_cast<long long>(kWarps) * kChunk);
+    const int groups = (a < 256 ? a + 31 : 256) / 32;  // angle groups a lane
+    if (groups <= 1) {
+      accum_kernel<Rows, 1><<<grid, kWarps * 32, 0, s>>>(rows, labels, n, cos_a, sin_a, k, o);
+    } else if (groups <= 2) {
+      accum_kernel<Rows, 2><<<grid, kWarps * 32, 0, s>>>(rows, labels, n, cos_a, sin_a, k, o);
+    } else if (groups <= 4) {
+      accum_kernel<Rows, 4><<<grid, kWarps * 32, 0, s>>>(rows, labels, n, cos_a, sin_a, k, o);
+    } else {
+      accum_kernel<Rows, 8><<<grid, kWarps * 32, 0, s>>>(rows, labels, n, cos_a, sin_a, k, o);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x, y, z: float32[n]; labels: int32[n]; cos_a, sin_a: float32[a].
+// x, y, z: float32[n]; labels: int32[n]; cos_a, sin_a: float32[a];
+// out: float32[6k + 4ka].
 PCH_API int pch_obb_accumulate_xyz(const float* x, const float* y,
                                    const float* z, const int* labels,
                                    long long n, const float* cos_a,
@@ -246,7 +366,8 @@ PCH_API int pch_obb_accumulate_xyz(const float* x, const float* y,
 }
 
 // hi, lo: int32[n] Morton words; labels: int32[n]; off: float32[3] on the
-// device, mn + vs / 2; vs: the voxel size; cos_a, sin_a: float32[a].
+// device, mn + vs / 2; vs: the voxel size; cos_a, sin_a: float32[a];
+// out: float32[6k + 4ka].
 PCH_API int pch_obb_accumulate(const int* hi, const int* lo, const int* labels,
                                long long n, const float* off, float vs,
                                const float* cos_a, const float* sin_a, int k,

@@ -183,6 +183,10 @@ def exact_extract_graph(
 
     eps = scalar(cp.eps)
     cell = eps / 2.0
+    # the reference divides by the constant cell; XLA:CPU compiles that as
+    # a product with its f32 reciprocal, which floors some rows into the
+    # next cell at eps 6 or 3 (never at 5 or 8)
+    inv_cell = 1.0 / cell
 
     # ---- exact ground base + cut
     z = xyz[:, 2].contiguous()
@@ -205,9 +209,9 @@ def exact_extract_graph(
 
     # ---- cell keys against the kept-set f32 min corner
     mn = torch.stack([torch.where(valid0, v, _BIG).min() for v in (xs0, ys0, zs0)])
-    i0 = torch.floor((xs0 - mn[0]) / cell).to(torch.int32)
-    i1 = torch.floor((ys0 - mn[1]) / cell).to(torch.int32)
-    i2 = torch.floor((zs0 - mn[2]) / cell).to(torch.int32)
+    i0 = torch.floor((xs0 - mn[0]) * inv_cell).to(torch.int32)
+    i1 = torch.floor((ys0 - mn[1]) * inv_cell).to(torch.int32)
+    i2 = torch.floor((zs0 - mn[2]) * inv_cell).to(torch.int32)
     ck = interleave_tight(i0, i1, i2, cell_bits)
     ck = torch.where(valid0, ck, _KEY_SENTINEL)
 
@@ -242,7 +246,7 @@ def exact_extract_graph(
     # cell centers recomputed from a member coordinate with the SAME f32
     # arithmetic as the key assignment
     cij = torch.stack(
-        [torch.floor((p - mn[a]) / cell) for a, p in enumerate((px, py, pz))],
+        [torch.floor((p - mn[a]) * inv_cell) for a, p in enumerate((px, py, pz))],
         dim=1,
     )
     centers = torch.where(cell_alive[:, None], (cij + 0.5) * cell, _BIG)

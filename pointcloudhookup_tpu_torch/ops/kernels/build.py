@@ -69,7 +69,8 @@ _SIGNATURES = {
     "pch_compact_indices_scratch": (_I64, [_I64]),
     "pch_compact_indices": (_I32, [_P, _I64, _I32, _P, _P, _P]),
     "pch_dupwin": (_I32, [_P, _P, _I64, _I32, _P, _P]),
-    "pch_winsort": (_I32, [_P, _P, _P, _I64, _I32, _P]),
+    "pch_winsort_scratch": (_I64, [_I64, _I32]),
+    "pch_winsort": (_I32, [_P, _P, _P, _I64, _I32, _P, _P]),
     "pch_block_sort": (_I32, [_P, _P, _P, _I64, _I32, _P]),
     "pch_merge_rounds": (_I32, [_P, _P, _P, _P, _I64, _I32, _P]),
 }

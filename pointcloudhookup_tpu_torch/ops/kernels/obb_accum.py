@@ -41,6 +41,19 @@ def angle_table(num_angles: int, device):
     return ang.cos().to(device), ang.sin().to(device)
 
 
+_TABLES: dict = {}
+
+
+def cached_angle_table(num_angles: int, device):
+    """angle_table's values, copied to ``device`` once per (A, device): the
+    copy from host memory waits for the device, so the kernels' wrappers
+    must not make it on every call."""
+    key = (num_angles, torch.device(device))
+    if key not in _TABLES:
+        _TABLES[key] = angle_table(num_angles, device)
+    return _TABLES[key]
+
+
 def obb_accumulate_xyz(x, y, z, labels, *, max_clusters: int = 128,
                        num_angles: int = 256):
     """x/y/z float32[N]; labels int32[N], id in [0, K) or anything else to
@@ -61,7 +74,7 @@ def obb_accumulate_xyz(x, y, z, labels, *, max_clusters: int = 128,
         raise ValueError(f"labels must be int32[{n}]")
     k, a = max_clusters, num_angles
     lib = build.library()
-    cos_a, sin_a = angle_table(a, x.device)
+    cos_a, sin_a = cached_angle_table(a, x.device)
     out = torch.empty(6 * k + 4 * k * a, dtype=torch.float32, device=x.device)
     rc = lib.pch_obb_accumulate_xyz(
         x.data_ptr(), y.data_ptr(), z.data_ptr(), labels.data_ptr(), n,
@@ -122,9 +135,11 @@ def obb_accumulate_xyz_plain(x, y, z, labels, *, max_clusters: int = 128,
 
 
 def _morton_offset(mn, voxel_size: float):
-    """(vs, off): the voxel size and mn + vs/2 as float32 tensors on mn's
-    device, rounded as the TPU kernel rounds them."""
-    vs = torch.tensor(voxel_size, dtype=torch.float32, device=mn.device)
+    """(vs, off): the float32 voxel size (a number) and mn + vs/2 as a
+    float32 tensor on mn's device, rounded once as the TPU kernel rounds
+    it.  vs/2 is exact in float32, so adding it as a number gives the same
+    bits as adding a float32 tensor, with no copy to the device."""
+    vs = torch.tensor(voxel_size, dtype=torch.float32).item()
     return vs, (mn + vs * 0.5).to(torch.float32)
 
 
@@ -149,7 +164,7 @@ def obb_accumulate(hi, lo, labels, mn, *, voxel_size: float = 0.1,
     k, a = max_clusters, num_angles
     lib = build.library()
     _, off = _morton_offset(mn, voxel_size)
-    cos_a, sin_a = angle_table(a, hi.device)
+    cos_a, sin_a = cached_angle_table(a, hi.device)
     out = torch.empty(6 * k + 4 * k * a, dtype=torch.float32, device=hi.device)
     rc = lib.pch_obb_accumulate(
         hi.data_ptr(), lo.data_ptr(), labels.data_ptr(), n, off.data_ptr(),
@@ -165,6 +180,7 @@ def obb_accumulate_plain(hi, lo, labels, mn, *, voxel_size: float = 0.1,
                          max_clusters: int = 128, num_angles: int = 256):
     """Plain PyTorch version: same contract."""
     vs, off = _morton_offset(mn, voxel_size)
+    vs = torch.tensor(vs, dtype=torch.float32, device=hi.device)
     x, y, z = (
         fma_f32(v.to(torch.float32), vs, off[a])
         for a, v in enumerate(morton_decode(hi, lo))

@@ -7,8 +7,9 @@ version below is the JAX package's own path off the TPU
 (``ops/frontend_fused.py``'s ``sort_mode="hier"`` branch: pad, sort the
 [-1, W] rows, sort again at offset W/2), and is what CPU tensors take and
 what the kernel is held against on the card.  Unlike the TPU kernel (W 256,
-N a multiple of 32768) the window is any even size from 2 to 1024 and N is
-free.
+N a multiple of 32768) the window is any even size from 2 up, as in the
+reference's path off the TPU, and N is free.  A window above 4,096 rows
+sorts through a scratch buffer the wrapper allocates (``csrc/winsort.cu``).
 """
 
 from __future__ import annotations
@@ -21,12 +22,13 @@ launches = 0  # window_sort_w calls that ran the kernel (read and reset by chip_
 
 PAD_K1 = 0xFFFFFFFF
 PAD_W = 0x7FFF
-MAX_WINDOW = 1024
 
 
 def _check_window(window: int) -> None:
-    if not 2 <= window <= MAX_WINDOW or window % 2:
-        raise ValueError(f"window must be even and in [2, {MAX_WINDOW}], got {window}")
+    # the reference's second pass reshapes [half:-half] into rows of W,
+    # which needs an even W
+    if window < 2 or window % 2:
+        raise ValueError(f"window must be even and at least 2, got {window}")
 
 
 def window_sort_w(k1, w, window: int = 256):
@@ -47,11 +49,14 @@ def window_sort_w(k1, w, window: int = 256):
         raise ValueError(f"w must be int32[{n}]")
     lib = build.library()
     out = torch.empty_like(w)
+    scratch = torch.empty(lib.pch_winsort_scratch(n, window), dtype=torch.uint8,
+                          device=k1.device)
     rc = lib.pch_winsort(
-        k1.data_ptr(), w.data_ptr(), out.data_ptr(), n, window, build.stream(k1.device)
+        k1.data_ptr(), w.data_ptr(), out.data_ptr(), n, window, scratch.data_ptr(),
+        build.stream(k1.device),
     )
     build.check(rc, "window_sort_w")
-    launches += n > 0  # one call: a launch per pass, the second where n > window
+    launches += n > 0  # one call: one launch a pass, more above 4,096 rows a window
     return out
 
 

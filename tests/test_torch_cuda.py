@@ -473,6 +473,101 @@ def test_obb_accumulate_morton_kernel_matches_plain(cuda):
                      summation_bound=True)
 
 
+OBB_EDGE_CASES = {  # id: (rows, K, A, label layout)
+    "one-labelled-row": (100_000, 128, 256, "one"),
+    "runs-beyond-a-span": (300_001, 16, 256, "long-runs"),
+    "one-run": (200_000, 128, 256, "one-run"),
+    "none-labelled": (50_000, 128, 256, "none"),
+    "k1": (70_000, 1, 256, "runs"),
+    "a7": (70_000, 32, 7, "runs"),
+    "a64": (70_000, 32, 64, "runs"),
+    "a300-two-angle-blocks": (70_000, 32, 300, "runs"),
+    "outside-labels": (90_000, 8, 64, "outside"),
+    "ragged-n": (128 * 37 + 5, 32, 64, "runs"),
+    "tiny": (3, 4, 33, "one-run"),
+}
+
+
+def obb_edge_labels(rng, size, k, layout):
+    """Labels of an OBB edge case: one labelled row; runs of 20,000 rows
+    (longer than a warp's span at these sizes) with a sprinkle of noise;
+    one run over every row; none; runs of 16 (obb_inputs); or only labels
+    >= K and negative but for one run."""
+    lab = np.full(size, -1, np.int64)
+    if layout == "one":
+        lab[size // 3] = 5
+    elif layout == "long-runs":
+        lab = np.repeat(rng.integers(0, k, size // 20_000 + 1), 20_000)[:size]
+        lab[rng.random(size) < 0.2] = -1
+    elif layout == "one-run":
+        lab[:] = k - 1
+    elif layout == "runs":
+        lab = np.repeat(rng.integers(-1, k + 4, size // 16 + 1), 16)[:size]
+    elif layout == "outside":
+        lab = np.where(rng.random(size) < 0.5, k + rng.integers(0, 9, size),
+                       -rng.integers(1, 1 << 30, size))
+        lab[1000:1100] = 3
+    return lab.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["xyz", "morton"])
+@pytest.mark.parametrize("case", list(OBB_EDGE_CASES), ids=list(OBB_EDGE_CASES))
+def test_obb_accum_kernel_edge_cases(cuda, case, variant):
+    """The tile walk's edges against the plain version: counts and extremes
+    identical, sums to the f32 summation bound."""
+    size, k, a, layout = OBB_EDGE_CASES[case]
+    hi, lo, _, mn, vox = morton_inputs(21, size, k)
+    xyz, _ = obb_inputs(21, size, k)
+    lab = obb_edge_labels(np.random.default_rng(22), size, k, layout)
+    if variant == "xyz":
+        args = tuple(t(v, cuda) for v in (xyz[:, 0], xyz[:, 1], xyz[:, 2], lab))
+        kernel, plain, counter = (obb_accum.obb_accumulate_xyz,
+                                  obb_accum.obb_accumulate_xyz_plain, "launches")
+    else:
+        xyz = vox
+        args = tuple(t(v, cuda) for v in (hi, lo, lab, mn))
+        kernel, plain, counter = (obb_accum.obb_accumulate, obb_accum.obb_accumulate_plain,
+                                  "launches_morton")
+    before = getattr(obb_accum, counter)
+    got = kernel(*args, max_clusters=k, num_angles=a)
+    assert getattr(obb_accum, counter) == before + 1
+    ref = plain(*args, max_clusters=k, num_angles=a)
+    torch.cuda.synchronize()
+    assert_acc_close({key: n(v) for key, v in got.items()},
+                     {key: n(v) for key, v in ref.items()}, xyz, lab, k, 0.0,
+                     summation_bound=True)
+    if layout == "none":
+        assert (n(got["cnt"]) == 0).all() and (n(got["ulo"]) == BIG).all()
+
+
+@pytest.mark.cuda
+def test_obb_wrappers_make_no_host_sync(cuda):
+    """Both OBB wrappers launch with no host round trip: the angle table is
+    cached on the card, the Morton offset is computed there."""
+    k, a = 32, 64
+    xyz, lab = obb_inputs(23, 50_000, k)
+    hi, lo, mlab, mn, _ = morton_inputs(23, 50_000, k)
+    xargs = tuple(t(v, cuda) for v in (xyz[:, 0], xyz[:, 1], xyz[:, 2], lab))
+    margs = tuple(t(v, cuda) for v in (hi, lo, mlab, mn))
+    # the first calls build the library and copy the angle table
+    obb_accum.obb_accumulate_xyz(*xargs, max_clusters=k, num_angles=a)
+    obb_accum.obb_accumulate(*margs, max_clusters=k, num_angles=a)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_x = obb_accum.obb_accumulate_xyz(*xargs, max_clusters=k, num_angles=a)
+        got_m = obb_accum.obb_accumulate(*margs, max_clusters=k, num_angles=a)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for got, ref in ((got_x, obb_accum.obb_accumulate_xyz_plain(*xargs, max_clusters=k,
+                                                                num_angles=a)),
+                     (got_m, obb_accum.obb_accumulate_plain(*margs, max_clusters=k,
+                                                            num_angles=a))):
+        for key in ("cnt", "zlo", "zhi", "ulo", "uhi", "vlo", "vhi"):
+            assert torch.equal(got[key], ref[key]), key
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "size,n_set,m",
@@ -507,14 +602,23 @@ def test_dupwin_kernel_matches_plain(cuda, size, max_run, depth):
 @pytest.mark.parametrize(
     "size,window,max_run",
     [(4 << 20, 256, 129), (4 << 20, 256, 700), (100_003, 512, 257), (1000, 1024, 40),
-     (777, 2, 3), (3000, 6, 5)],
-    ids=["bench", "dense", "w512-pad", "one-window", "w2", "w6-not-pow2"],
+     (777, 2, 3), (3000, 6, 5), (1 << 20, 2048, 1100), (100_003, 4096, 2100),
+     (1 << 20, 16384, 9000), (131_072, 32_768, 17_000), (100_003, 20_002, 11_000),
+     (300_000, 131_072, 70_000), (5000, 40_000, 100)],
+    ids=["bench", "dense", "w512-pad", "one-window", "w2", "w6-not-pow2", "w2048",
+         "w4096-pad", "w16384-chunks", "w32768-chunks", "w20002-chunks-not-pow2",
+         "w131072-chunks", "w-above-n"],
 )
 def test_winsort_kernel_matches_plain(cuda, size, window, max_run):
+    """Windows up to 4,096 rows sort in one block's shared memory, larger
+    ones in 4,096-key chunks through the scratch buffer: the kernel runs
+    (its launch counted) and equals the plain version."""
     k1, rng = key_runs(17, size, max_run)
     w = rng.integers(0, 1 << 15, size).astype(np.int32)
     args = (t(k1, cuda), t(w, cuda), window)
+    before = winsort.launches
     got = winsort.window_sort_w(*args)
+    assert winsort.launches == before + 1
     ref = winsort.window_sort_w_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)

@@ -15,6 +15,7 @@ Tolerances and why:
     areas may resolve to the neighbouring angle, which moves a box by up
     to max(extent) * (pi/2)/A."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -170,3 +171,73 @@ def test_return_acc_and_local_rows(workload, jax_cuts):
             torch.from_numpy(xyz), torch.from_numpy(mask), PARAMS,
             axis_name="tiles", **kw
         )
+
+
+def _reciprocal_split_tile(workload, eps):
+    """The module's tile with two groups of 20 kept rows placed in one
+    cell as XLA:CPU assigns it -- it rewrites the graph's division by the
+    constant cell = eps / 2 into a product with its f32 reciprocal -- where
+    the first group's x lies one ulp below a cell edge, so that the true
+    quotient floors it into the cell before (found with numpy: such rows
+    exist at eps 6 and 3, not at 5 or 8)."""
+    xyz, mask, kw = workload
+    params = dataclasses.replace(
+        PARAMS, cluster=dataclasses.replace(PARAMS.cluster, eps=eps)
+    )
+    keep = np.asarray(jfe.exact_extract_graph(xyz, mask, params, _cut=1, **kw)["keep"])
+    mn = xyz[keep].min(axis=0)
+    z_top = np.float32(xyz[keep, 2].max())
+    cell = np.float32(eps) / np.float32(2.0)
+    recip = np.float32(1.0) / cell
+    for j in range(int(100.0 / cell), int(200.0 / cell)):
+        edge = np.float32(j * float(cell)).view(np.int32)
+        for step in range(1, 64):
+            x = np.float32(mn[0] + np.int32(edge - step).view(np.float32))
+            d = np.float32(x - mn[0])
+            if np.floor(d * recip) == j and np.floor(d / cell) == j - 1:
+                break
+        else:
+            continue
+        break
+    else:
+        raise AssertionError("no row found where the two floors differ")
+    inside = np.float32(mn[0] + (j + np.float32(0.5)) * cell)
+    y = np.float32(mn[1] + np.float32(20.5) * cell)
+    z = np.float32(z_top - np.float32(0.5))
+    free = np.where(~mask)[0][:40]
+    out, m = xyz.copy(), mask.copy()
+    out[free] = np.stack([np.r_[np.full(20, x), np.full(20, inside)],
+                          np.full(40, y), np.full(40, z)], 1)
+    m[free] = True
+    return out, m, params
+
+
+@pytest.mark.parametrize("eps", [6.0, 3.0])
+def test_cell_keys_round_as_xla(workload, eps):
+    """The exact graph divides by the constant cell = eps / 2, which
+    XLA:CPU computes as a product with the f32 reciprocal.  At eps 6 and 3
+    the two round some rows into different cells; the port must follow
+    XLA.  With a density floor of 25 the placed cell of 40 rows is dense
+    only if both groups share it, so the keep set, partition and counts
+    all depend on it."""
+    _, _, kw = workload
+    xyz, mask, params = _reciprocal_split_tile(workload, eps)
+    kw = dict(kw, min_cell_points=25)
+    ref = jfe.exact_extract_graph(xyz, mask, params, _cut=4, **kw)
+    got = tfe.exact_extract_graph(torch.from_numpy(xyz), torch.from_numpy(mask), params,
+                                  _cut=4, **kw)
+    for key in ("centers", "ccount", "cell_alive"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]), err_msg=key)
+    ref = {k: np.asarray(v) for k, v in jfe.exact_extract_graph(
+        xyz, mask, params, **kw).items()}
+    got = state.to_numpy(tfe.exact_extract_graph(
+        torch.from_numpy(xyz), torch.from_numpy(mask), params, **kw))
+    cnt = int(ref["compact_count"])
+    assert int(got["compact_count"]) == cnt
+    np.testing.assert_array_equal(np.sort(got["rows_sorted"][:cnt]),
+                                  np.sort(ref["rows_sorted"][:cnt]))
+    placed = _row_labels(ref, CAP)[~workload[1] & mask]
+    assert (placed >= 0).all() and len(set(placed)) == 1  # one cluster, as XLA puts it
+    np.testing.assert_array_equal(_row_labels(got, CAP), _row_labels(ref, CAP))
+    for key in ("count", "alive", "accepted", "aabb_min", "aabb_max"):
+        np.testing.assert_array_equal(got[key], ref[key], err_msg=key)

@@ -261,3 +261,26 @@ def test_obb_accumulate_plain_within_an_ulp_of_the_oracle():
         np.testing.assert_allclose(n(got[key]), np.asarray(ref[key]), rtol=0, atol=ulp)
     for key in ("ulo", "uhi", "vlo", "vhi"):
         np.testing.assert_allclose(n(got[key]), np.asarray(ref[key]), rtol=0, atol=2 * ulp)
+
+
+@pytest.mark.parametrize("a", [7, 64, 256])
+def test_cached_angle_table_equals_angle_table(a):
+    """The wrappers' per-(A, device) table holds angle_table's values, and a
+    second call reuses the same tensors (no copy per call)."""
+    cos_c, sin_c = obb_accum.cached_angle_table(a, "cpu")
+    cos_r, sin_r = obb_accum.angle_table(a, "cpu")
+    assert torch.equal(cos_c, cos_r) and torch.equal(sin_c, sin_r)
+    again = obb_accum.cached_angle_table(a, torch.device("cpu"))
+    assert again[0] is cos_c and again[1] is sin_c
+
+
+@pytest.mark.parametrize("voxel_size", [0.1, 0.05, 0.3, 1.0 / 3.0])
+def test_morton_offset_matches_tensor_arithmetic(voxel_size):
+    """mn + vs/2 added as a number gives the bits of the float32 tensor
+    arithmetic it replaced (vs as a float32 tensor, halved, added)."""
+    rng = np.random.default_rng(20)
+    mn = t(rng.uniform(-3000, 3000, (64, 3)).astype(np.float32))
+    vs, off = obb_accum._morton_offset(mn, voxel_size)
+    vs_t = torch.tensor(voxel_size, dtype=torch.float32)
+    assert vs == float(vs_t)
+    assert off.dtype == torch.float32 and torch.equal(off, mn + vs_t * 0.5)

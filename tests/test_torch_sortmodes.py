@@ -117,7 +117,8 @@ def _jax_window_path(k1, w16, window):
 
 
 @pytest.mark.parametrize("n,window,max_run", [(40_000 - 37, 512, 257), (20_011, 256, 300),
-                                               (1000, 1024, 40)])
+                                               (1000, 1024, 40), (50_001, 2048, 1100),
+                                               (40_000, 4096, 2100), (9_000, 3000, 1600)])
 def test_winsort_plain_matches_reference_window_path(n, window, max_run):
     k1, w = _winsort_make(n, max_run, seed=window)
     ref_k1, ref_w = _jax_window_path(jnp.asarray(k1), jnp.asarray(w), window)
@@ -157,6 +158,13 @@ def _merge_cases():
 
 
 MERGE_CASES = _merge_cases()
+
+
+@pytest.mark.parametrize("window", [0, 3, 2049])
+def test_winsort_refuses_an_odd_window(window):
+    k1 = torch.arange(10, dtype=torch.int64)
+    with pytest.raises(ValueError, match="even"):
+        winsort.window_sort_w(k1, torch.zeros(10, dtype=torch.int32), window)
 
 
 @pytest.mark.parametrize("case", list(MERGE_CASES))
@@ -264,7 +272,7 @@ def _max_cell_run(xyz):
     return np.unique((v[:, 0] << 42) | (v[:, 1] << 21) | v[:, 2], return_counts=True)[1].max()
 
 
-@pytest.mark.parametrize("window", [256, 512])
+@pytest.mark.parametrize("window", [256, 512, 2048])
 def test_hier_matches_jax_hier_and_full(tiles, jax_full, window):
     xyz, mask, _ = tiles["sparse"]
     assert _max_cell_run(xyz) <= window // 2 + 1
