@@ -51,8 +51,10 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      needs, counted by the plain version's walk, beside the all-pairs
      count). Phase 3 also profiles one exact graph run (device ms by
      kernel), runs cluster_converge at the fast path's own call, the
-     bench configuration's 4,096-row cell table, and winsort at W 2,048
-     and 32,768 (chunked passes through a scratch buffer) besides W 256.
+     bench configuration's 4,096-row cell table, and winsort at W 2,048,
+     4,096 (the largest window one block sorts) and 32,768 (chunked
+     passes through a scratch buffer) besides W 256, with a line of
+     device, library and bound ms for each sort-mode kernel case.
 
 Launch counts are reset just before each path's run (1, 4, 5, each mode of
 7) and read just after.  Prints the card's name and power limit, one JSON line of
@@ -812,11 +814,11 @@ def main() -> int:
          lambda: winsort.window_sort_w_plain(k1, w16, 256),
          exact("winsort"), nbytes=N_POINTS * (4 + 2 + 4),
          library_fn=lambda: (keys0.view(-1, 256).sort(dim=1), keys_mid.view(-1, 256).sort(dim=1)))
-    # hier_window takes any even size: a window one block sorts in shared
-    # memory (2,048) and one above 4,096 rows, sorted in chunked passes
+    # hier_window takes any even size: windows a block sorts (2,048 and
+    # 4,096, the largest) and one above 4,096 rows, sorted in chunked passes
     nw = 1 << 20
     k1w, w16w = k1[:nw], w16[:nw]
-    for ww in (2048, 32768):
+    for ww in (2048, 4096, 32768):
         keys_w = winsort.packed_windows(k1w, w16w, ww)
         case("winsort", f"hier keys, rows {nw}, W {ww}",
              lambda ww=ww: winsort.window_sort_w(k1w, w16w, ww),
@@ -824,6 +826,12 @@ def main() -> int:
              exact("winsort"), nbytes=nw * (4 + 2 + 4),
              library_fn=lambda ww=ww, kw=keys_w: (
                  kw.view(-1, ww).sort(dim=1), kw[ww // 2:-ww // 2].view(-1, ww).sort(dim=1)))
+    for name in ("dupwin", "winsort"):
+        for c in results[name]:
+            lib = ("none" if c["library_device_ms"] is None
+                   else f"{c['library_device_ms']:.4f} (torch.sort(dim=1), both offsets)")
+            print(f"{name} {c['case']}: device {c['device_ms']} ms, library device {lib} ms, "
+                  f"bound {c['bound_ms']:.4f} ms")
     packed = (hi0.to(torch.int64) << 30) | lo0.to(torch.int64)
     merge_case = case("mergesort", f"Morton (hi, lo)[{N_POINTS}], block 8192",
                       lambda: mergesort.merge_sort_2key(hi0, lo0),

@@ -1,5 +1,6 @@
 // Block-wide exclusive sum, shared by the compaction kernels
-// (compactrows.cu, and compactidx.cu through compact_scan.cuh).
+// (compactrows.cu, and compactidx.cu through compact_scan.cuh) and by
+// winsort.cu's rank count.
 #pragma once
 
 #include "common.cuh"

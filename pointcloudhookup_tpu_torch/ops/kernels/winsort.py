@@ -8,8 +8,9 @@ version below is the JAX package's own path off the TPU
 [-1, W] rows, sort again at offset W/2), and is what CPU tensors take and
 what the kernel is held against on the card.  Unlike the TPU kernel (W 256,
 N a multiple of 32768) the window is any even size from 2 up, as in the
-reference's path off the TPU, and N is free.  A window above 4,096 rows
-sorts through a scratch buffer the wrapper allocates (``csrc/winsort.cu``).
+reference's path off the TPU, and N is free.  Up to 4,096 rows a window one
+launch runs both passes; a larger window sorts through a scratch buffer the
+wrapper allocates (``csrc/winsort.cu``).
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ def window_sort_w(k1, w, window: int = 256):
         build.stream(k1.device),
     )
     build.check(rc, "window_sort_w")
-    launches += n > 0  # one call: one launch a pass, more above 4,096 rows a window
+    launches += n > 0  # one call: one launch for both passes, more above 4,096 rows a window
     return out
 
 

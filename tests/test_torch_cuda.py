@@ -582,15 +582,49 @@ def test_compact_indices_kernel_matches_plain(cuda, size, n_set, m):
     assert got.dtype == torch.int32 and torch.equal(got, ref)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "size,max_run,depth",
-    [(4 << 20, 33, 16), (4 << 20, 200, 64), (100_003, 3, 1), (5, 9, 64), (70_000, 20_000, 20_000)],
-    ids=["tight", "untight", "depth1", "tiny", "deep-halo"],
-)
-def test_dupwin_kernel_matches_plain(cuda, size, max_run, depth):
-    k1, rng = key_runs(16, size, max_run)
+def dupwin_inputs(seed, size, max_run, kind):
+    """k1 and w for dupwin: sorted key runs (the callers' keys), the same
+    rows shuffled inside groups of 96 ("unsorted"), sorted up to the
+    middle and shuffled after ("mixed": early tiles sorted, later ones
+    not), or every row equal."""
+    k1, rng = key_runs(seed, size, max_run)
     w = rng.integers(0, max(2, max_run // 4), size).astype(np.int32)
+    # shuffled inside groups of 96 rows, so that equal rows stay near
+    local = np.argsort(np.arange(size) // 96 + rng.random(size) * 0.5, kind="stable")
+    if kind == "unsorted":
+        k1, w = k1[local], w[local]
+    elif kind == "mixed":
+        perm = np.where(np.arange(size) < size // 2, np.arange(size), local)
+        k1, w = k1[perm], w[perm]
+    elif kind == "equal":
+        k1[:], w[:] = 7, 3
+    return k1, w
+
+
+DUPWIN_CASES = {
+    "tight": (4 << 20, 33, 16, "sorted"),
+    "untight": (4 << 20, 200, 64, "sorted"),
+    "depth1": (100_003, 3, 1, "sorted"),
+    "tiny": (5, 9, 64, "sorted"),
+    "deep-halo": (70_000, 20_000, 20_000, "sorted"),
+    "unsorted": (300_001, 40, 64, "unsorted"),
+    "unsorted-depth16": (300_001, 40, 16, "unsorted"),
+    "sorted-then-unsorted": (1 << 20, 90, 64, "mixed"),
+    "runs-beyond-depth": (1 << 20, 1000, 64, "sorted"),
+    "runs-beyond-depth16": (1 << 20, 300, 16, "sorted"),
+    "all-equal": (100_003, 1, 64, "equal"),
+    "all-equal-depth17": (100_003, 1, 17, "equal"),
+    **{f"depth{d}": (200_003, 2 * d + 5, d, "sorted") for d in (1, 15, 16, 17, 63, 64, 65, 127)},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DUPWIN_CASES), ids=list(DUPWIN_CASES))
+def test_dupwin_kernel_matches_plain(cuda, case):
+    """Sorted tiles compare w back to the run start, other tiles (k1, w)
+    in full: either way the flags equal the plain version's."""
+    size, max_run, depth, kind = DUPWIN_CASES[case]
+    k1, w = dupwin_inputs(16, size, max_run, kind)
     args = (t(k1, cuda), t(w, cuda), depth)
     got = dupwin.first_occurrence_flags(*args)
     ref = dupwin.first_occurrence_flags_plain(*args)
@@ -598,23 +632,80 @@ def test_dupwin_kernel_matches_plain(cuda, size, max_run, depth):
     assert got.dtype == torch.bool and torch.equal(got, ref)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "size,window,max_run",
-    [(4 << 20, 256, 129), (4 << 20, 256, 700), (100_003, 512, 257), (1000, 1024, 40),
-     (777, 2, 3), (3000, 6, 5), (1 << 20, 2048, 1100), (100_003, 4096, 2100),
-     (1 << 20, 16384, 9000), (131_072, 32_768, 17_000), (100_003, 20_002, 11_000),
-     (300_000, 131_072, 70_000), (5000, 40_000, 100)],
-    ids=["bench", "dense", "w512-pad", "one-window", "w2", "w6-not-pow2", "w2048",
-         "w4096-pad", "w16384-chunks", "w32768-chunks", "w20002-chunks-not-pow2",
-         "w131072-chunks", "w-above-n"],
-)
-def test_winsort_kernel_matches_plain(cuda, size, window, max_run):
-    """Windows up to 4,096 rows sort in one block's shared memory, larger
-    ones in 4,096-key chunks through the scratch buffer: the kernel runs
-    (its launch counted) and equals the plain version."""
-    k1, rng = key_runs(17, size, max_run)
+def winsort_inputs(seed, size, max_run, kind):
+    """Sorted k1 in runs and 15-bit w; "one-run": every row one k1;
+    "distinct": a new k1 every row; "pad": the last run holds k1
+    0xFFFFFFFF, the padding's key, with w at 0x7FFF and above, beside the
+    pad rows."""
+    k1, rng = key_runs(seed, size, max_run)
     w = rng.integers(0, 1 << 15, size).astype(np.int32)
+    if kind == "one-run":
+        k1[:] = 12345
+    elif kind == "distinct":
+        k1 = np.arange(size, dtype=np.int64) * 3
+    elif kind == "pad":
+        tail = min(size, max_run)
+        k1[-tail:] = 0xFFFFFFFF
+        w[-tail:] = rng.choice(np.array([0x7FFE, 0x7FFF, 0x8000, 0xFFFF], np.int32), tail)
+    return k1, w
+
+
+WINSORT_CASES = {
+    "bench": (4 << 20, 256, 129, "runs"),
+    "dense": (4 << 20, 256, 700, "runs"),
+    "w512-pad": (100_003, 512, 257, "runs"),
+    "one-window": (1000, 1024, 40, "runs"),
+    "w2": (777, 2, 3, "runs"),
+    "w6-not-pow2": (3000, 6, 5, "runs"),
+    "w2048": (1 << 20, 2048, 1100, "runs"),
+    "w4096-pad": (100_003, 4096, 2100, "runs"),
+    "w16384-chunks": (1 << 20, 16384, 9000, "runs"),
+    "w32768-chunks": (131_072, 32_768, 17_000, "runs"),
+    "w20002-chunks-not-pow2": (100_003, 20_002, 11_000, "runs"),
+    "w131072-chunks": (300_000, 131_072, 70_000, "runs"),
+    "w-above-n": (5000, 40_000, 100, "runs"),
+    # each boundary of the dispatch: a warp a window, a block a window,
+    # ranked chunks, 64-bit chunks
+    "w256": (1 << 18, 256, 129, "runs"),
+    "w258": (100_003, 258, 130, "runs"),
+    "w512": (1 << 18, 512, 257, "runs"),
+    "w514": (100_003, 514, 258, "runs"),
+    "w4096": (1 << 20, 4096, 2100, "runs"),
+    "w4098": (100_003, 4098, 2100, "runs"),
+    "w32768": (1 << 20, 32_768, 17_000, "runs"),
+    "w32770": (200_000, 32_770, 17_000, "runs"),
+    "w65536": (300_000, 65_536, 33_000, "runs"),
+    # N against the block's windows (T = 15 at W 256, 3 at 2,048) and W/2
+    "w256-ragged-blocks": (256 * 15 * 3 + 256 * 5 + 77, 256, 129, "runs"),
+    "w2048-ragged-blocks": (2048 * 3 * 5 + 2048 + 1001, 2048, 1100, "runs"),
+    "w256-n-below-half": (100, 256, 20, "runs"),
+    "w4096-n-below-half": (1000, 4096, 300, "runs"),
+    "w32768-n-below-half": (10_000, 32_768, 5000, "runs"),
+    "w256-n-half-plus-1": (129, 256, 50, "runs"),
+    "w4096-n-half-plus-1": (2049, 4096, 600, "runs"),
+    "w32768-n-half-plus-1": (16_385, 32_768, 5000, "runs"),
+    "w256-one-run": (1 << 16, 256, 1, "one-run"),
+    "w4096-one-run": (20_000, 4096, 1, "one-run"),
+    "w32768-one-run": (70_000, 32_768, 1, "one-run"),
+    "w256-distinct": (1 << 16, 256, 1, "distinct"),
+    "w2048-distinct": (20_000, 2048, 1, "distinct"),
+    "w16384-distinct": (70_000, 16_384, 1, "distinct"),
+    "w256-pad-7fff": (1037, 256, 100, "pad"),
+    "w4096-pad-7fff": (5003, 4096, 1500, "pad"),
+    "w32768-pad-7fff": (40_011, 32_768, 9000, "pad"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WINSORT_CASES), ids=list(WINSORT_CASES))
+def test_winsort_kernel_matches_plain(cuda, case):
+    """Windows up to 256 rows sort a warp a window, up to 4,096 a block a
+    window (both passes in one launch), larger ones in 4,096-key chunks
+    through the scratch buffer (ranked 32-bit keys up to 32,768 rows,
+    64-bit above): the kernel runs (its launch counted) and equals the
+    plain version."""
+    size, window, max_run, kind = WINSORT_CASES[case]
+    k1, w = winsort_inputs(17, size, max_run, kind)
     args = (t(k1, cuda), t(w, cuda), window)
     before = winsort.launches
     got = winsort.window_sort_w(*args)
@@ -622,6 +713,26 @@ def test_winsort_kernel_matches_plain(cuda, size, window, max_run):
     ref = winsort.window_sort_w_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_sort_mode_wrappers_make_no_host_sync(cuda):
+    """window_sort_w (one block a window, and chunked) and
+    first_occurrence_flags launch with no device-to-host read."""
+    k1, w = winsort_inputs(19, 100_003, 129, "runs")
+    k1t, wt = t(k1, cuda), t(w, cuda)
+    winsort.window_sort_w(k1t, wt, 256)  # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [winsort.window_sort_w(k1t, wt, ww) for ww in (256, 2048, 16384)]
+        flags = [dupwin.first_occurrence_flags(k1t, wt, d) for d in (16, 64)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, ww in zip(got, (256, 2048, 16384)):
+        assert torch.equal(g, winsort.window_sort_w_plain(k1t, wt, ww))
+    for f, d in zip(flags, (16, 64)):
+        assert torch.equal(f, dupwin.first_occurrence_flags_plain(k1t, wt, d))
 
 
 MERGE_BLOCKS = [32 << i for i in range(9)]  # every power of two from 32 to 8192

@@ -59,13 +59,26 @@ def _runs(n, max_run, seed):
 # ------------------------------------------------------------------ kernels
 
 
-@pytest.mark.parametrize("depth", [1, 16, 64])
-def test_dupwin_plain_matches_jax_kernel(depth):
+@pytest.mark.parametrize("depth,order", [
+    pytest.param(1, "sorted", id="1"), pytest.param(16, "sorted", id="16"),
+    pytest.param(64, "sorted", id="64"), pytest.param(16, "unsorted", id="16-unsorted"),
+    pytest.param(64, "unsorted", id="64-unsorted"),
+    pytest.param(64, "sorted-then-unsorted", id="64-sorted-then-unsorted"),
+])
+def test_dupwin_plain_matches_jax_kernel(depth, order):
     """Runs up to 2 * depth + 3 rows (longer than the depth + 1 guarantee),
-    a small w alphabet so duplicates occur near and beyond the window."""
+    a small w alphabet so duplicates occur near and beyond the window.
+    "unsorted": the rows shuffled inside groups of 96 (the card kernel's
+    full-compare branch); "sorted-then-unsorted": only the second half
+    shuffled, so that early tiles are sorted and later ones not."""
     n = 65536
     k1, rng = _runs(n, 2 * depth + 3, seed=depth)
     w = rng.integers(0, max(2, depth // 2), n).astype(np.int32)
+    if order != "sorted":
+        local = np.argsort(np.arange(n) // 96 + rng.random(n) * 0.5, kind="stable")
+        if order == "sorted-then-unsorted":
+            local = np.where(np.arange(n) < n // 2, np.arange(n), local)
+        k1, w = k1[local], w[local]
     got = dupwin.first_occurrence_flags(
         torch.from_numpy(k1.astype(np.int64)), torch.from_numpy(w), depth
     ).numpy()
@@ -118,7 +131,9 @@ def _jax_window_path(k1, w16, window):
 
 @pytest.mark.parametrize("n,window,max_run", [(40_000 - 37, 512, 257), (20_011, 256, 300),
                                                (1000, 1024, 40), (50_001, 2048, 1100),
-                                               (40_000, 4096, 2100), (9_000, 3000, 1600)])
+                                               (40_000, 4096, 2100), (9_000, 3000, 1600),
+                                               (20_003, 258, 130), (30_001, 4098, 2100),
+                                               (70_001, 32_770, 17_000)])
 def test_winsort_plain_matches_reference_window_path(n, window, max_run):
     k1, w = _winsort_make(n, max_run, seed=window)
     ref_k1, ref_w = _jax_window_path(jnp.asarray(k1), jnp.asarray(w), window)
