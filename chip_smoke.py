@@ -54,7 +54,12 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      bench configuration's 4,096-row cell table, and winsort at W 2,048,
      4,096 (the largest window one block sorts) and 32,768 (chunked
      passes through a scratch buffer) besides W 256, with a line of
-     device, library and bound ms for each sort-mode kernel case.
+     device, library and bound ms for each sort-mode kernel case; segscan
+     also at the fast path's own calls (the pre-cut bench run's and the
+     sort-mode tile's cell populations, the centroid-voxel sums of four
+     float32 columns, within the summation bound and bit-equal over two
+     calls), torch.cumsum of the same int32 rows for scale, and a check
+     that a segscan or compact_indices call launches one kernel.
 
 Launch counts are reset just before each path's run (1, 4, 5, each mode of
 7) and read just after.  Prints the card's name and power limit, one JSON line of
@@ -197,8 +202,8 @@ def require_equal(name, got, ref):
 def profile_iteration(fn, top: int = 15):
     """One call of fn under torch.profiler: its wall ms, the device's busy
     ms (device-side kernels and copies, summed), the idle share of the
-    wall, and the top device ms by kernel name; device figures are None
-    when the profiler recorded no device time."""
+    wall, the top device ms by kernel name and the launches by name; device
+    figures are None when the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -209,17 +214,17 @@ def profile_iteration(fn, top: int = 15):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: an aten op's row repeats its kernels' time
-    device_us = {
-        e.key: e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    }
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = {e.key: e.self_device_time_total for e in device}
     device_ms = sum(device_us.values()) / 1e3
     ranked = sorted(device_us.items(), key=lambda kv: -kv[1])[:top]
     if device_ms == 0.0:
-        return dict(wall_ms=wall_ms, device_ms=None, idle_share=None, top=[])
+        return dict(wall_ms=wall_ms, device_ms=None, idle_share=None, top=[], counts={})
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 idle_share=max(0.0, 1.0 - device_ms / wall_ms),
-                top=[(k, v / 1e3) for k, v in ranked])
+                top=[(k, v / 1e3) for k, v in ranked],
+                counts={e.key: e.count for e in device})
 
 
 def nearest_xy(centers, xy) -> float:
@@ -546,7 +551,7 @@ def main() -> int:
             case=label, ms=ms, device_ms=prof["device_ms"], host_ms=host_ms, plain_ms=plain_ms,
             library_ms=lib_ms, library_device_ms=lib_dev, max_abs_err=err, bytes=nbytes, flops=flops,
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-            device_kernels=ran, pairs=pairs, all_pairs=all_pairs,
+            device_kernels=ran, device_launches=prof["counts"], pairs=pairs, all_pairs=all_pairs,
         )
         results[name].append(entry)
         lib = (f"  library {lib_ms:8.3f} ms (device {lib_dev})" if lib_ms is not None
@@ -791,6 +796,75 @@ def main() -> int:
          lambda: compactidx.compact_indices_plain(dense_start, mc),
          exact("compact_indices"), nbytes=N_POINTS + 4 * mc,
          library_fn=lambda: torch.nonzero(dense_start))
+
+    # segscan at the fast path's shapes, taken from the path's own calls:
+    # the cell populations (add reverse) of the bench run with the pre-cut
+    # and of the sort-mode tile, and the centroid-voxel sums of four columns
+    def captured_scans(run):
+        calls = []
+        kernel = segscan.segmented_scan
+
+        def record(values, is_start, op="add", reverse=False):
+            calls.append((values, is_start, op, reverse))
+            return kernel(values, is_start, op, reverse)
+
+        segscan.segmented_scan = record
+        try:
+            run()
+        finally:
+            segscan.segmented_scan = kernel
+        return calls
+
+    def cell_population(calls):
+        return next(c for c in calls if c[2] == "add" and c[3] and c[0].dim() == 1)
+
+    for label, run in (("bench run, pre-cut", lambda: bench_iter(precut_div)),
+                       ("sort-mode tile (hier)", lambda: mode_iter(modes["hier"]))):
+        vals, flags, _, _ = cell_population(captured_scans(run))
+        case("segscan", f"{label}: add reverse i32[{vals.shape[0]}]",
+             lambda v=vals, f=flags: segscan.segmented_scan(v, f, "add", True),
+             lambda v=vals, f=flags: segscan.segmented_scan_plain(v, f, "add", True),
+             exact("segscan"), nbytes=vals.shape[0] * (4 + 1 + 4))
+    # an unsegmented one-pass scan of the same int32 [N], for scale only (it
+    # computes another function, so it is not the library column)
+    cum_ms = timed(lambda: torch.cumsum(vals, 0, dtype=torch.int32), 5)[0]
+    cum_dev = profile_iteration(lambda: torch.cumsum(vals, 0, dtype=torch.int32))["device_ms"]
+    print(f"torch.cumsum over the same i32[{vals.shape[0]}] (not segmented, for scale): "
+          f"{cum_ms:.4f} ms, device {cum_dev} ms")
+
+    def cmp_sums(vals, flags, reverse, kernel_fn):
+        # float32 sums in the kernel's fixed order: two calls give the same
+        # bits, and each output, a sum of k rows, lies within k 2**-23 sum|v|
+        # of the doubling scan's (each order is within (k - 1) u sum|v| of
+        # the exact sum, u = 2**-24)
+        def cmp(got, ref):
+            if not torch.equal(got, kernel_fn()):
+                raise AssertionError("segscan: two calls of a float32 sum differ")
+            ones = torch.ones(vals.shape[0], dtype=torch.float64, device=dev)
+            k = segscan.segmented_scan_plain(ones, flags, "add", reverse)
+            mag = segscan.segmented_scan_plain(vals.double().abs(), flags, "add", reverse)
+            d = (got.double() - ref.double()).abs()
+            if bool((d > k[:, None] * 2.0**-23 * mag).any()):
+                raise AssertionError("segscan: a float32 sum beyond the summation bound")
+            return float(d.max())
+        return cmp
+
+    centroid_kw = dict(bench_kw, geometric_voxels=False, emit="xyz")
+    vals4, flags4, _, _ = next(c for c in captured_scans(
+        lambda: frontend_fused.fused_downsample_ground_cluster(
+            xyz_b, mask_b, params, precut_div=0, **centroid_kw)) if c[0].dim() == 2)
+    scan4 = lambda: segscan.segmented_scan(vals4, flags4, "add", True)  # noqa: E731
+    case("segscan", f"centroid voxels: f32 add reverse [{vals4.shape[0]}, {vals4.shape[1]}]",
+         scan4, lambda: segscan.segmented_scan_plain(vals4, flags4, "add", True),
+         cmp_sums(vals4, flags4, True, scan4), nbytes=vals4.shape[0] * (16 + 1 + 16),
+         plain_reps=1)
+    # segscan and compact_indices: one kernel launch a call, besides a memset
+    for name in ("segscan", "compact_indices"):
+        for c in results[name]:
+            runs = c["device_launches"]
+            memsets = sum(v for k, v in runs.items() if "memset" in k.lower())
+            if c["device_ms"] is not None and (sum(runs.values()) - memsets != 1 or memsets > 1):
+                raise AssertionError(f"{name} {c['case']}: one call launched {runs}")
 
     # sort-mode kernels on the bench tile's keys: dupwin on the tight key
     # (depth 16) and on the cell key (depth 64), winsort on the hier keys,

@@ -1,6 +1,5 @@
-// Block-wide exclusive sum, shared by the compaction kernels
-// (compactrows.cu, and compactidx.cu through compact_scan.cuh) and by
-// winsort.cu's rank count.
+// Block-wide exclusive sum, shared by compactrows.cu and by winsort.cu's
+// rank count.
 #pragma once
 
 #include "common.cuh"

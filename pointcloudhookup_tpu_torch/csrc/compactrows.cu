@@ -15,9 +15,8 @@
 //   - each of its 256 threads reads 16 keep bytes with one 16-byte load,
 //     counts them, and the block scans the counts;
 //   - the block publishes its tile's count; warp 0 sums the predecessors'
-//     published words back to the nearest inclusive prefix (a flag and a
-//     32-bit value in one 64-bit word, so a word is read whole or not at
-//     all); the block publishes its own inclusive prefix;
+//     published words back to the nearest inclusive prefix (look_back in
+//     lookback.cuh); the block publishes its own inclusive prefix;
 //   - per channel, the block reads the tile's rows striped (neighbouring
 //     threads on neighbouring rows; a row that is not kept is not loaded, so
 //     sectors without a kept row never leave memory), stages the kept rows
@@ -31,6 +30,7 @@
 #include <cstdint>
 
 #include "block_scan.cuh"
+#include "lookback.cuh"
 
 namespace {
 
@@ -38,8 +38,6 @@ constexpr int kMaxChannels = 8;
 constexpr int kRowThreads = 256;
 constexpr int kRowItems = 16;                      // keep bytes a thread loads
 constexpr int kRowTile = kRowThreads * kRowItems;  // 4096 rows
-constexpr unsigned kAggregate = 1;                 // status flags (high word)
-constexpr unsigned kInclusive = 2;
 constexpr int kMaxFillBlocks = 128;
 
 // Passed as a __grid_constant__ parameter: indexed by channel in place,
@@ -48,46 +46,6 @@ struct Channels {
   const int* in[kMaxChannels];
   int fill[kMaxChannels];
 };
-
-__device__ __forceinline__ unsigned long long status_word(unsigned flag,
-                                                          long long value) {
-  return (static_cast<unsigned long long>(flag) << 32) |
-         static_cast<unsigned>(value);
-}
-
-__device__ __forceinline__ void publish(unsigned long long* status,
-                                        unsigned long long word) {
-  *reinterpret_cast<volatile unsigned long long*>(status) = word;
-}
-
-__device__ __forceinline__ unsigned long long read_status(
-    const unsigned long long* status) {
-  return *reinterpret_cast<const volatile unsigned long long*>(status);
-}
-
-// The rows before `tile` kept in all, by warp 0: lane i reads the status of
-// tile - 1 - i (spinning until it is published), and the warp adds the words
-// up to the nearest inclusive prefix, 32 tiles a step.
-__device__ long long look_back(const unsigned long long* status, int tile) {
-  const int lane = threadIdx.x & 31;
-  long long prefix = 0;
-  for (int last = tile - 1;; last -= 32) {
-    const int idx = last - lane;
-    unsigned long long word = status_word(kInclusive, 0);  // before tile 0
-    if (idx >= 0) {
-      do {
-        word = read_status(status + idx);
-      } while ((word >> 32) == 0);
-    }
-    const unsigned incl = __ballot_sync(pch::kFullMask, (word >> 32) == kInclusive);
-    const int stop = incl ? __ffs(incl) - 1 : 31;
-    long long v = lane <= stop ? static_cast<long long>(word & 0xFFFFFFFFull) : 0;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(pch::kFullMask, v, off);
-    prefix += v;
-    if (incl) return prefix;
-  }
-}
 
 // Rows [min(count, cap), cap) of every channel <- its fill value, by fill
 // block `block` of `blocks`.

@@ -1,283 +1,390 @@
-// Segmented inclusive scan (add / max / min over int32 or float32).
+// Segmented inclusive scan (add / max / min over int32 or float32) of one
+// column [n], or of C <= 4 columns [n, C] (row-major) under one flag array.
 //
 // Replaces pointcloudhookup_tpu/ops/pallas/segscan.py::segmented_scan_pallas
 // (pallas_call at :136).  Forward scans restart at rows whose flag is set;
 // reverse scans run from the end and restart at segment ENDS, i.e. the
 // reversed flags are is_start[i+1] with the last row always flagged
-// (pointcloudhookup_tpu/ops/segments.py:95-99).
+// (pointcloudhookup_tpu/ops/segments.py:95-99).  The first row a scan
+// reaches is always flagged, so no identity value is ever folded into a
+// result.  The combine rule is segscan.py's right-dominant one,
+//   (fa, va) . (fb, vb) = (fa | fb, fb ? vb : op(va, vb)).
 //
-// Bound: device-memory bandwidth (two reads of values + flags, one write).
-// The TPU kernel carried the running (flag, value) state through its
-// sequential grid in SMEM; CUDA blocks run in no order, so the carry is a
-// separate pass ("reduce, then scan"):
-//   1. tile_reduce  each 4096-row tile's aggregate state
-//   2. tile_carry   exclusive scan of the aggregates (one block)
-//   3. tile_scan    rescan each tile, seeded with its carry, and write
-// The combine rule is segscan.py's right-dominant one,
-//   (fa, va) . (fb, vb) = (fa | fb, fb ? vb : op(va, vb)),
-// made total with an explicit "empty" state instead of an identity value,
-// so no identity is ever folded into a result: the first scanned row is
-// always flagged, and every output reduces real rows only.
-#include "common.cuh"
+// Bound: device-memory bandwidth: the values and flags read once and the
+// outputs written once (9 bytes a row for one column).  The TPU kernel
+// carried the running state through its sequential grid in SMEM; here one
+// kernel scans in one pass by the decoupled look-back:
+//   - a block takes the next tile, in scan order, from an atomic counter:
+//     a reverse scan takes the array's tiles from the end, so loads stay
+//     aligned to the array and the ragged tile is scanned first (its rows
+//     past n precede row n - 1, which is flagged);
+//   - each of its 256 threads owns consecutive rows (thread order is scan
+//     order), 16 for one column (4,096-row tiles), 8 for two, 4 for three
+//     or four: 64 bytes of values in four 16-byte loads (three for C = 3),
+//     the flags in one load; a reverse scan takes the flag byte after its
+//     rows from the neighbouring lane by a shuffle, with one byte load at
+//     warp and tile edges;
+//   - the thread scans its rows in registers, the warp scans the threads'
+//     (flag, value) states by shuffles, warp 0 the warps' through shared
+//     memory; the block publishes its tile's aggregate, warp 0 folds the
+//     predecessors' words into the carry (seg_look_back in lookback.cuh: a
+//     fixed fold, so float sums do not depend on timing), and the block
+//     writes its rows with 16-byte stores.
+// A base pointer that is not 16-byte aligned takes the same kernel with
+// scalar loads and stores (VEC = false); so does the ragged tile.  One
+// cudaMemsetAsync per call clears the tile counter and the status words.
+#include <cstdint>
+
+#include "lookback.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kItems = 8;
-constexpr int kTile = kThreads * kItems;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCols = 4;
+
+// Rows a thread owns for C columns: 64 bytes of values, in four 16-byte
+// loads (three for C = 3), and its flags in one load.
+template <int C>
+__host__ __device__ constexpr int items() {
+  return C == 1 ? 16 : (C == 2 ? 8 : 4);
+}
+template <int C>
+__host__ __device__ constexpr int tile_rows() {
+  return kThreads * items<C>();
+}
 
 enum Op { kAdd = 0, kMax = 1, kMin = 2 };
 
-template <typename T>
-struct St {
-  int has;  // 0: empty state (no rows)
-  int f;    // a segment starts inside
-  T v;      // op-reduction since the last start
+template <int OP>
+struct Apply {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const {
+    if constexpr (OP == kAdd) {
+      return a + b;
+    } else if constexpr (OP == kMax) {
+      return a > b ? a : b;
+    } else {
+      return a < b ? a : b;
+    }
+  }
 };
 
-template <typename T, int OP>
-__device__ __forceinline__ T apply(T a, T b) {
-  if (OP == kAdd) return a + b;
-  if (OP == kMax) return a > b ? a : b;
-  return a < b ? a : b;
+// Bit j set for each nonzero byte j of w.
+__device__ __forceinline__ unsigned byte_mask(unsigned w) {
+  return ((__vcmpne4(w, 0u) & 0x01010101u) * 0x01020408u) >> 24;
 }
 
-template <typename T, int OP>
-__device__ __forceinline__ St<T> comb(St<T> a, St<T> b) {
-  if (!a.has) return b;
-  if (!b.has) return a;
-  St<T> r;
-  r.has = 1;
-  r.f = a.f | b.f;
-  r.v = b.f ? b.v : apply<T, OP>(a.v, b.v);
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ St<T> empty_state() {
-  St<T> s;
-  s.has = 0;
-  s.f = 0;
-  s.v = T(0);
-  return s;
-}
-
-template <typename T>
-__device__ __forceinline__ St<T> shfl_up(St<T> s, int d) {
-  St<T> r;
-  r.has = __shfl_up_sync(pch::kFullMask, s.has, d);
-  r.f = __shfl_up_sync(pch::kFullMask, s.f, d);
-  r.v = __shfl_up_sync(pch::kFullMask, s.v, d);
-  return r;
-}
-
-// Row at scan position p: its array index, value and restart flag.
-template <typename T>
-__device__ __forceinline__ long long load_row(const T* __restrict__ values,
-                                              const unsigned char* __restrict__ is_start,
-                                              long long n, int reverse,
-                                              long long p, T* v, int* f) {
-  const long long a = reverse ? n - 1 - p : p;
-  *v = values[a];
-  if (p == 0) {
-    *f = 1;
-  } else if (reverse) {
-    *f = is_start[a + 1] != 0;  // a < n - 1 here
-  } else {
-    *f = is_start[a] != 0;
+// x <- p . x, column by column (xf: x's flag).
+template <typename T, int C, typename OP>
+__device__ __forceinline__ void fold_into(bool& xf, T (&xv)[C], bool pf,
+                                          const T (&pv)[C], OP op) {
+  if (!xf) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) xv[c] = op(pv[c], xv[c]);
   }
-  return a;
+  xf = xf || pf;
 }
 
-// Exclusive block-wide scan of one state per thread; *total receives the
-// combination of all threads' states.  Callable in a loop.
-template <typename T, int OP>
-__device__ St<T> block_exclusive(St<T> x, St<T>* warp_tot, St<T>* total) {
+template <typename T, int OP, bool REV, int C, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    segscan_kernel(const T* __restrict__ values,
+                   const unsigned char* __restrict__ is_start,
+                   T* __restrict__ out, long long n, int ntiles,
+                   unsigned long long* __restrict__ agg,
+                   unsigned long long* __restrict__ incl,
+                   unsigned* __restrict__ next_tile) {
+  __shared__ int s_tile;
+  __shared__ bool s_wf[kWarps];
+  __shared__ T s_wv[kWarps][C];
+  __shared__ bool s_cf;
+  __shared__ T s_cv[C];
+  const Apply<OP> op;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  St<T> incl = x;
+  if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(next_tile, 1u));
+  __syncthreads();
+  constexpr int kItems = items<C>();
+  constexpr int kTile = tile_rows<C>();
+  const int tile = s_tile;  // in scan order
+  const int atile = REV ? ntiles - 1 - tile : tile;
+  const int slot = REV ? kThreads - 1 - threadIdx.x : threadIdx.x;
+  const long long a0 = static_cast<long long>(atile) * kTile + slot * kItems;
+  const bool full = a0 + kItems <= n;
+
+  // ---- load: v[k] is row a0 + k (array order), bit k of m is_start[a0 + k]
+  T v[kItems][C];
+  unsigned m = 0;
+  if (VEC && full) {
+    const uint4* src = reinterpret_cast<const uint4*>(values + a0 * C);
+#pragma unroll
+    for (int i = 0; i < kItems * C / 4; ++i) {
+      const uint4 q = src[i];
+      const unsigned b[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[(4 * i + j) / C][(4 * i + j) % C] = from_bits<T>(b[j]);
+    }
+    if constexpr (kItems == 16) {
+      const uint4 q = *reinterpret_cast<const uint4*>(is_start + a0);
+      m = byte_mask(q.x) | byte_mask(q.y) << 4 | byte_mask(q.z) << 8 | byte_mask(q.w) << 12;
+    } else if constexpr (kItems == 8) {
+      const uint2 q = *reinterpret_cast<const uint2*>(is_start + a0);
+      m = byte_mask(q.x) | byte_mask(q.y) << 4;
+    } else {
+      m = byte_mask(*reinterpret_cast<const unsigned*>(is_start + a0));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const long long r = a0 + k;
+      const bool in = r < n;
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[k][c] = in ? values[r * C + c] : T(0);
+      if (in && is_start[r]) m |= 1u << k;
+    }
+  }
+  // bit k of f: row a0 + k restarts the scan
+  unsigned f;
+  if (REV) {  // at is_start[a + 1]; the last row always
+    const unsigned up = __shfl_up_sync(pch::kFullMask, m, 1);  // lane - 1: the rows after
+    unsigned next = 1;
+    if (a0 + kItems < n) next = lane > 0 ? (up & 1u) : (is_start[a0 + kItems] != 0);
+    f = (m >> 1) | (next << (kItems - 1));
+    const long long last = n - 1 - a0;
+    if (last >= 0 && last < kItems) f |= 1u << last;
+  } else {
+    f = m;
+    if (a0 == 0) f |= 1u;
+  }
+
+  // ---- the thread's rows, in registers, in scan order
+#pragma unroll
+  for (int j = 1; j < kItems; ++j) {
+    const int k = REV ? kItems - 1 - j : j;
+    const int kp = REV ? k + 1 : k - 1;
+    if (!((f >> k) & 1u)) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[k][c] = op(v[kp][c], v[k][c]);
+    }
+  }
+  // rows before the thread's first flag, in scan order, take its prefix
+  const int open = f == 0 ? kItems : (REV ? __clz(f) - (32 - kItems) : __ffs(f) - 1);
+  bool xf = f != 0;  // the warp's inclusive state at this lane
+  T xv[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) xv[c] = v[REV ? 0 : kItems - 1][c];
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const St<T> up = shfl_up(incl, d);
-    if (lane >= d) incl = comb<T, OP>(up, incl);
+    const bool uf = __shfl_up_sync(pch::kFullMask, xf, d);
+    T uv[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) uv[c] = __shfl_up_sync(pch::kFullMask, xv[c], d);
+    if (lane >= d) fold_into(xf, xv, uf, uv, op);
   }
-  St<T> lane_excl = shfl_up(incl, 1);
-  if (lane == 0) lane_excl = empty_state<T>();
-  __syncthreads();  // earlier readers of warp_tot are done
-  if (lane == 31) warp_tot[warp] = incl;
+  bool ef = __shfl_up_sync(pch::kFullMask, xf, 1);  // lanes before this one
+  T ev[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) ev[c] = __shfl_up_sync(pch::kFullMask, xv[c], 1);
+  if (lane == 31) {
+    s_wf[warp] = xf;
+#pragma unroll
+    for (int c = 0; c < C; ++c) s_wv[warp][c] = xv[c];
+  }
   __syncthreads();
+
+  // ---- warp 0: the warps' inclusive states, the aggregate, the carry
   if (warp == 0) {
-    St<T> w = lane < kWarps ? warp_tot[lane] : empty_state<T>();
+    bool wf = lane < kWarps && s_wf[lane];
+    T wv[C];
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const St<T> up = shfl_up(w, d);
-      if (lane >= d) w = comb<T, OP>(up, w);
+    for (int c = 0; c < C; ++c) wv[c] = lane < kWarps ? s_wv[lane][c] : T(0);
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const bool uf = __shfl_up_sync(pch::kFullMask, wf, d);
+      T uv[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) uv[c] = __shfl_up_sync(pch::kFullMask, wv[c], d);
+      if (lane >= d) fold_into(wf, wv, uf, uv, op);
     }
-    if (lane < kWarps) warp_tot[lane] = w;
+    if (lane < kWarps) {
+      s_wf[lane] = wf;
+#pragma unroll
+      for (int c = 0; c < C; ++c) s_wv[lane][c] = wv[c];
+    }
+    bool af = __shfl_sync(pch::kFullMask, wf, kWarps - 1);
+    T av[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) av[c] = __shfl_sync(pch::kFullMask, wv[c], kWarps - 1);
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) publish(agg + static_cast<long long>(tile) * C + c, seg_word(af, av[c]));
+    }
+    bool cf = false;
+    T cv[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) cv[c] = T(0);
+    if (tile > 0) {
+      cf = seg_look_back<T, C>(agg, incl, tile, cv, op);
+      if ((tile & 31) == 31 && lane == 0) {  // an anchor: its inclusive state
+        fold_into(af, av, cf, cv, op);
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          publish(incl + static_cast<long long>(tile >> 5) * C + c, seg_word(af, av[c]));
+      }
+    }
+    if (lane == 0) {
+      s_cf = cf;
+#pragma unroll
+      for (int c = 0; c < C; ++c) s_cv[c] = cv[c];
+    }
   }
   __syncthreads();
-  *total = warp_tot[kWarps - 1];
-  const St<T> warp_excl = warp > 0 ? warp_tot[warp - 1] : empty_state<T>();
-  return comb<T, OP>(warp_excl, lane_excl);
-}
 
-template <typename T, int OP>
-__global__ void tile_reduce(const T* __restrict__ values,
-                            const unsigned char* __restrict__ is_start,
-                            long long n, int reverse, int* __restrict__ agg_f,
-                            T* __restrict__ agg_v) {
-  __shared__ St<T> warp_tot[kWarps];
-  const long long p0 =
-      static_cast<long long>(blockIdx.x) * kTile + threadIdx.x * kItems;
-  St<T> acc = empty_state<T>();
+  // ---- the thread's exclusive prefix: carry . warps before . lanes before
+  bool pf = s_cf;
+  T pv[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) pv[c] = s_cv[c];
+  if (warp > 0) {
+    bool wf = s_wf[warp - 1];
+    T wv[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) wv[c] = s_wv[warp - 1][c];
+    fold_into(wf, wv, pf, pv, op);
+    pf = wf;
+#pragma unroll
+    for (int c = 0; c < C; ++c) pv[c] = wv[c];
+  }
+  if (lane > 0) {
+    fold_into(ef, ev, pf, pv, op);
+#pragma unroll
+    for (int c = 0; c < C; ++c) pv[c] = ev[c];
+  }
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
-    const long long p = p0 + j;
-    if (p < n) {
-      St<T> r;
-      r.has = 1;
-      load_row(values, is_start, n, reverse, p, &r.v, &r.f);
-      acc = comb<T, OP>(acc, r);
-    }
-  }
-  St<T> total;
-  block_exclusive<T, OP>(acc, warp_tot, &total);
-  if (threadIdx.x == 0) {
-    agg_f[blockIdx.x] = total.f;
-    agg_v[blockIdx.x] = total.v;
-  }
-}
-
-template <typename T, int OP>
-__global__ void tile_carry(const int* __restrict__ agg_f,
-                           const T* __restrict__ agg_v, int nb,
-                           int* __restrict__ carry_has,
-                           int* __restrict__ carry_f, T* __restrict__ carry_v) {
-  __shared__ St<T> warp_tot[kWarps];
-  St<T> run = empty_state<T>();  // identical in every thread
-  for (int start = 0; start < nb; start += kThreads) {
-    const int i = start + threadIdx.x;
-    St<T> x = empty_state<T>();
-    if (i < nb) {
-      x.has = 1;
-      x.f = agg_f[i];
-      x.v = agg_v[i];
-    }
-    St<T> total;
-    const St<T> ex = block_exclusive<T, OP>(x, warp_tot, &total);
-    const St<T> c = comb<T, OP>(run, ex);
-    if (i < nb) {
-      carry_has[i] = c.has;
-      carry_f[i] = c.f;
-      carry_v[i] = c.v;
-    }
-    run = comb<T, OP>(run, total);
-  }
-}
-
-template <typename T, int OP>
-__global__ void tile_scan(const T* __restrict__ values,
-                          const unsigned char* __restrict__ is_start,
-                          long long n, int reverse,
-                          const int* __restrict__ carry_has,
-                          const int* __restrict__ carry_f,
-                          const T* __restrict__ carry_v, T* __restrict__ out) {
-  __shared__ St<T> warp_tot[kWarps];
-  const long long p0 =
-      static_cast<long long>(blockIdx.x) * kTile + threadIdx.x * kItems;
-  T v[kItems];
-  int f[kItems];
-  long long a[kItems];
-  St<T> acc = empty_state<T>();
-  int count = 0;
+    const int k = REV ? kItems - 1 - j : j;
+    if (j < open) {
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const long long p = p0 + j;
-    if (p < n) {
-      a[j] = load_row(values, is_start, n, reverse, p, &v[j], &f[j]);
-      St<T> r;
-      r.has = 1;
-      r.f = f[j];
-      r.v = v[j];
-      acc = comb<T, OP>(acc, r);
-      ++count;
+      for (int c = 0; c < C; ++c) v[k][c] = op(pv[c], v[k][c]);
     }
   }
-  St<T> total;
-  const St<T> ex = block_exclusive<T, OP>(acc, warp_tot, &total);
-  St<T> c;
-  c.has = carry_has[blockIdx.x];
-  c.f = carry_f[blockIdx.x];
-  c.v = carry_v[blockIdx.x];
-  St<T> run = comb<T, OP>(c, ex);
+
+  // ---- store, in array order
+  if (VEC && full) {
+    uint4* dst = reinterpret_cast<uint4*>(out + a0 * C);
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    if (j < count) {
-      St<T> r;
-      r.has = 1;
-      r.f = f[j];
-      r.v = v[j];
-      run = comb<T, OP>(run, r);
-      out[a[j]] = run.v;
+    for (int i = 0; i < kItems * C / 4; ++i) {
+      unsigned b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = to_bits(v[(4 * i + j) / C][(4 * i + j) % C]);
+      dst[i] = make_uint4(b[0], b[1], b[2], b[3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const long long r = a0 + k;
+      if (r < n) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) out[r * C + c] = v[k][c];
+      }
     }
   }
 }
 
-template <typename T, int OP>
+// int32 words of scratch for n rows of C columns: the tile counter (and a
+// pad word), an aggregate word per tile and column, an inclusive word per
+// anchor tile (one in 32) and column.
+template <int C>
+long long scratch_words(long long n) {
+  const long long nb = pch::blocks_for(n, tile_rows<C>());
+  return 2 + 2LL * C * (nb + (nb + 31) / 32);
+}
+
+long long scratch_words(long long n, int cols) {
+  switch (cols) {
+    case 1: return scratch_words<1>(n);
+    case 2: return scratch_words<2>(n);
+    case 3: return scratch_words<3>(n);
+    default: return scratch_words<4>(n);
+  }
+}
+
+template <typename T, int OP, bool REV, int C>
 int launch(const void* values, const unsigned char* is_start, void* out,
-           long long n, int reverse, int* scratch, cudaStream_t s) {
-  const int nb = pch::blocks_for(n, kTile);
-  if (nb == 0) return static_cast<int>(cudaGetLastError());
-  int* agg_f = scratch;
-  T* agg_v = reinterpret_cast<T*>(scratch + nb);
-  int* carry_has = scratch + 2 * nb;
-  int* carry_f = scratch + 3 * nb;
-  T* carry_v = reinterpret_cast<T*>(scratch + 4 * nb);
+           long long n, int* scratch, cudaStream_t s) {
+  const int nb = pch::blocks_for(n, tile_rows<C>());
+  const cudaError_t err =
+      cudaMemsetAsync(scratch, 0, scratch_words<C>(n) * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unsigned* next_tile = reinterpret_cast<unsigned*>(scratch);
+  unsigned long long* agg = reinterpret_cast<unsigned long long*>(scratch + 2);
+  unsigned long long* incl = agg + static_cast<long long>(nb) * C;
   const T* v = static_cast<const T*>(values);
-  tile_reduce<T, OP><<<nb, kThreads, 0, s>>>(v, is_start, n, reverse, agg_f,
-                                            agg_v);
-  tile_carry<T, OP><<<1, kThreads, 0, s>>>(agg_f, agg_v, nb, carry_has,
-                                          carry_f, carry_v);
-  tile_scan<T, OP><<<nb, kThreads, 0, s>>>(v, is_start, n, reverse, carry_has,
-                                          carry_f, carry_v,
-                                          static_cast<T*>(out));
+  T* o = static_cast<T*>(out);
+  const bool vec = ((reinterpret_cast<uintptr_t>(values) | reinterpret_cast<uintptr_t>(is_start) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  if (vec)
+    segscan_kernel<T, OP, REV, C, true><<<nb, kThreads, 0, s>>>(v, is_start, o, n, nb, agg,
+                                                                incl, next_tile);
+  else
+    segscan_kernel<T, OP, REV, C, false><<<nb, kThreads, 0, s>>>(v, is_start, o, n, nb, agg,
+                                                                 incl, next_tile);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int OP, bool REV>
+int launch_cols(int cols, const void* values, const unsigned char* is_start,
+                void* out, long long n, int* scratch, cudaStream_t s) {
+  switch (cols) {
+    case 1: return launch<T, OP, REV, 1>(values, is_start, out, n, scratch, s);
+    case 2: return launch<T, OP, REV, 2>(values, is_start, out, n, scratch, s);
+    case 3: return launch<T, OP, REV, 3>(values, is_start, out, n, scratch, s);
+    case 4: return launch<T, OP, REV, 4>(values, is_start, out, n, scratch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int OP>
+int launch_dir(int reverse, int cols, const void* values,
+               const unsigned char* is_start, void* out, long long n,
+               int* scratch, cudaStream_t s) {
+  if (reverse) return launch_cols<T, OP, true>(cols, values, is_start, out, n, scratch, s);
+  return launch_cols<T, OP, false>(cols, values, is_start, out, n, scratch, s);
+}
+
 template <typename T>
-int launch_op(int op, const void* values, const unsigned char* is_start,
-              void* out, long long n, int reverse, int* scratch,
-              cudaStream_t s) {
+int launch_op(int op, int reverse, int cols, const void* values,
+              const unsigned char* is_start, void* out, long long n,
+              int* scratch, cudaStream_t s) {
   switch (op) {
-    case kAdd:
-      return launch<T, kAdd>(values, is_start, out, n, reverse, scratch, s);
-    case kMax:
-      return launch<T, kMax>(values, is_start, out, n, reverse, scratch, s);
-    case kMin:
-      return launch<T, kMin>(values, is_start, out, n, reverse, scratch, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kAdd: return launch_dir<T, kAdd>(reverse, cols, values, is_start, out, n, scratch, s);
+    case kMax: return launch_dir<T, kMax>(reverse, cols, values, is_start, out, n, scratch, s);
+    case kMin: return launch_dir<T, kMin>(reverse, cols, values, is_start, out, n, scratch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// 32-bit words of scratch pch_segscan needs for n rows.
-PCH_API long long pch_segscan_scratch(long long n) {
-  return 5LL * pch::blocks_for(n, kTile);
+PCH_API int pch_segscan_max_cols() { return kMaxCols; }
+
+// int32 words of scratch pch_segscan needs for n rows of cols columns.
+PCH_API long long pch_segscan_scratch(long long n, int cols) {
+  return scratch_words(n, cols);
 }
 
-// values/out: int32 (dtype 0) or float32 (dtype 1) [n]; is_start: uint8[n];
-// op: 0 add, 1 max, 2 min.
+// values/out: int32 (dtype 0) or float32 (dtype 1) [n, cols] row-major,
+// 1 <= cols <= 4; is_start: uint8[n]; op: 0 add, 1 max, 2 min.  n == 0
+// launches nothing.
 PCH_API int pch_segscan(const void* values, const unsigned char* is_start,
-                        void* out, long long n, int op, int dtype,
+                        void* out, long long n, int cols, int op, int dtype,
                         int reverse, int* scratch, void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 0 || cols < 1 || cols > kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_op<int>(op, values, is_start, out, n, reverse, scratch, s);
+    return launch_op<int>(op, reverse, cols, values, is_start, out, n, scratch, s);
   if (dtype == 1)
-    return launch_op<float>(op, values, is_start, out, n, reverse, scratch, s);
+    return launch_op<float>(op, reverse, cols, values, is_start, out, n, scratch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -404,11 +404,11 @@ def fused_downsample_ground_cluster(
         voxel_valid = v_start & (hi != SENTINEL_HI)
     else:
         # per-voxel sums of x, y, z and the weight at the run starts: one
-        # reverse segmented scan per column
-        vtot = [segmented_scan(torch.add, c, v_start, reverse=True)
-                for c in (sx * w, sy * w, sz * w, w)]
-        vcount = vtot[3]
-        vcent = torch.stack(vtot[:3], dim=1) / torch.clamp(vcount, min=1.0)[:, None]
+        # reverse segmented scan of the four columns
+        vals = torch.stack([sx * w, sy * w, sz * w, w], dim=1)
+        vtot = segmented_scan(torch.add, vals, v_start, reverse=True)
+        vcount = vtot[:, 3]
+        vcent = vtot[:, :3] / torch.clamp(vcount, min=1.0)[:, None]
         zcol = vcent[:, 2]
         voxel_valid = v_start & (vcount > 0.0) & (hi != SENTINEL_HI)
 

@@ -50,8 +50,9 @@ _SIGNATURES = {
     "pch_max_channels": (_I32, []),
     "pch_compact_rows_scratch": (_I64, [_I64]),
     "pch_compact_rows": (_I32, [_P, _I64, _P, _P, _I32, _P, _I64, _P, _P]),
-    "pch_segscan_scratch": (_I64, [_I64]),
-    "pch_segscan": (_I32, [_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P]),
+    "pch_segscan_max_cols": (_I32, []),
+    "pch_segscan_scratch": (_I64, [_I64, _I32]),
+    "pch_segscan": (_I32, [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P, _P]),
     "pch_neighbor_scratch": (_I64, [_I64]),
     "pch_neighbor_reduce": (
         _I32, [_P, _P, _P, _P, _I64, _P, _I32, _I32, _P, _P, _P, _P]

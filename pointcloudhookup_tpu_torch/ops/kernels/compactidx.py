@@ -3,8 +3,9 @@
 Counterpart of ``pointcloudhookup_tpu/ops/pallas/compactidx.py::
 compact_indices``.  The CUDA kernel is ``csrc/compactidx.cu``; the plain
 PyTorch version below is what CPU tensors take and what the kernel is held
-against on the card.  Unlike the TPU kernel there is no rule that N be a
-multiple of 32768.
+against on the card.  The kernel reads the flags once, in one launch (and a
+memset); m = 0 launches nothing.  Unlike the TPU kernel there is no rule
+that N be a multiple of 32768.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ def compact_indices(flag, m: int):
         build.stream(flag.device),
     )
     build.check(rc, "compact_indices")
-    launches += 1
+    if m > 0:
+        launches += 1
     return out
 
 

@@ -275,20 +275,189 @@ def test_compact_rows_morton_kernel_matches_plain(cuda, density, cap):
         assert torch.equal(g, r)
 
 
+SCAN_OPS = [(op, reverse) for op in ("add", "max", "min") for reverse in (False, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [1, 4095, 4097, 1 << 20])
+@pytest.mark.parametrize("size", [1, 15, 16, 17, 4095, 4097, 1 << 20, 4 << 20])
 def test_segscan_kernel_matches_plain(cuda, size):
     for dtype in (np.int32, np.float32):
         vals, flags = scan_inputs(4, size, dtype)
         if dtype == np.float32:
             vals = np.round(vals)  # integer-valued: sums exact in any order
-        for op in ("add", "max", "min"):
-            for reverse in (False, True):
-                args = (t(vals, cuda), t(flags, cuda), op, reverse)
-                got = segscan.segmented_scan(*args)
-                ref = segscan.segmented_scan_plain(*args)
-                torch.cuda.synchronize()
-                assert torch.equal(got, ref), (dtype, op, reverse)
+        for op, reverse in SCAN_OPS:
+            args = (t(vals, cuda), t(flags, cuda), op, reverse)
+            got = segscan.segmented_scan(*args)
+            ref = segscan.segmented_scan_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (dtype, op, reverse)
+
+
+SCAN_EDGE_CASES = {  # id: (size, flags: "one-segment" | "all" | random density)
+    "one-segment-4M": (4 << 20, "one-segment"),  # the longest look-back
+    "one-segment-ragged": (33 * 4096 + 5, "one-segment"),
+    "all-flagged": (100_003, "all"),
+    "sparse-flags": (1 << 20, 1e-5),  # spans of several tiles without a flag
+}
+
+
+def edge_flags(rng, size, kind):
+    if kind == "one-segment":
+        flags = np.zeros(size, bool)
+        flags[0] = True
+        return flags
+    if kind == "all":
+        return np.ones(size, bool)
+    return rng.random(size) < kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SCAN_EDGE_CASES), ids=list(SCAN_EDGE_CASES))
+def test_segscan_kernel_edge_cases(cuda, case):
+    """Integer scans bit-identical to the plain version: one segment over
+    every row (for a reverse scan, the one segment ends at the last row),
+    every row its own segment, and spans of many tiles with no flag."""
+    size, kind = SCAN_EDGE_CASES[case]
+    rng = np.random.default_rng(41)
+    flags = t(edge_flags(rng, size, kind), cuda)
+    vals = t(rng.integers(-3, 4, size).astype(np.int32), cuda)
+    for op, reverse in SCAN_OPS:
+        got = segscan.segmented_scan(vals, flags, op, reverse)
+        ref = segscan.segmented_scan_plain(vals, flags, op, reverse)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (op, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", ["values", "flags", "both"])
+def test_segscan_kernel_unaligned_views(cuda, shift):
+    """Views that do not start on a 16-byte boundary (v[1:], flags[1:])
+    take the kernel's scalar-load variant: still bit-identical."""
+    size = 3 * 4096 + 100
+    vals, flags = scan_inputs(42, size + 1, np.int32)
+    vt, ft = t(vals, cuda), t(flags, cuda)
+    v = vt[1:] if shift in ("values", "both") else vt[:-1]
+    f = ft[1:] if shift in ("flags", "both") else ft[:-1]
+    before = segscan.launches
+    for op, reverse in SCAN_OPS:
+        got = segscan.segmented_scan(v, f, op, reverse)
+        ref = segscan.segmented_scan_plain(v, f, op, reverse)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (op, reverse)
+    assert segscan.launches == before + len(SCAN_OPS)  # the kernel, not the plain version
+
+
+def assert_sums_close(got, ref, vals, flags, reverse):
+    """float32 add: each output sums k rows of its segment, in the kernel's
+    order and in the doubling scan's; each order is within (k - 1) u
+    sum|v| of the exact sum (u = 2**-24), so the two differ by at most
+    k 2**-23 sum|v| over those rows."""
+    ones = torch.ones_like(vals)
+    k = segscan.segmented_scan_plain(ones, flags, "add", reverse).double()
+    mag = segscan.segmented_scan_plain(vals.double().abs(), flags, "add", reverse)
+    bound = k * 2.0**-23 * mag
+    diff = (got.double() - ref.double()).abs()
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,density", [(1 << 20, 0.05), (4 << 20, 0.3), (1 << 20, 1e-5)])
+def test_segscan_kernel_float_sums(cuda, size, density):
+    """Non-integer float32 sums: within the summation bound of the plain
+    version, and two calls give the same bits (the carry between tiles is
+    a fixed fold, not whatever happens to be published)."""
+    rng = np.random.default_rng(43)
+    vals = t(rng.normal(0, 10, size).astype(np.float32), cuda)
+    flags = t(rng.random(size) < density, cuda)
+    for reverse in (False, True):
+        got = segscan.segmented_scan(vals, flags, "add", reverse)
+        again = segscan.segmented_scan(vals, flags, "add", reverse)
+        ref = segscan.segmented_scan_plain(vals, flags, "add", reverse)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), reverse
+        assert_sums_close(got, ref, vals, flags, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["i32", "f32"])
+@pytest.mark.parametrize("cols", [2, 3, 4])
+def test_segscan_kernel_columns(cuda, dtype, cols):
+    """[N, C] under one flag array, one launch: each column equals its own
+    1-D plain scan (float32 values integer-valued, so sums are exact)."""
+    size = 4096 * 37 + 11
+    rng = np.random.default_rng(44 + cols)
+    vals = t(np.round(rng.normal(0, 50, (size, cols))).astype(dtype), cuda)
+    flags = t(rng.random(size) < 0.1, cuda)
+    for op, reverse in SCAN_OPS:
+        before = segscan.launches
+        got = segscan.segmented_scan(vals, flags, op, reverse)
+        assert segscan.launches == before + 1
+        torch.cuda.synchronize()
+        assert got.shape == (size, cols)
+        for c in range(cols):
+            ref = segscan.segmented_scan_plain(vals[:, c].contiguous(), flags, op, reverse)
+            assert torch.equal(got[:, c], ref), (op, reverse, c)
+
+
+@pytest.mark.cuda
+def test_segscan_kernel_centroid_columns(cuda):
+    """The centroid-voxel call: float32 add reverse over [4M, 4] of
+    (x w, y w, z w, w); the weight column is exact, the others within the
+    summation bound; two calls give the same bits."""
+    size = 4 << 20
+    rng = np.random.default_rng(45)
+    xyz = rng.normal(0, 300, (size, 3)).astype(np.float32)
+    w = (rng.random(size) < 0.9).astype(np.float32)
+    vals = t(np.concatenate([xyz * w[:, None], w[:, None]], axis=1), cuda)
+    flags = t(rng.random(size) < 0.3, cuda)
+    got = segscan.segmented_scan(vals, flags, "add", True)
+    again = segscan.segmented_scan(vals, flags, "add", True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for c in range(4):
+        col = vals[:, c].contiguous()
+        ref = segscan.segmented_scan_plain(col, flags, "add", True)
+        if c == 3:
+            assert torch.equal(got[:, c], ref)
+        else:
+            assert_sums_close(got[:, c], ref, col, flags, True)
+
+
+def device_kernels(fn):
+    """Names of the device kernels one call of fn ran, and its memsets."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    memsets = [k for k in names if "memset" in k.lower()]
+    return [k for k in names if "memset" not in k.lower()], memsets
+
+
+@pytest.mark.cuda
+def test_scans_launch_one_kernel(cuda):
+    """segscan ([N] and [N, 4]) and compact_indices each run as one kernel
+    launch per call, besides at most one memset."""
+    rng = np.random.default_rng(46)
+    size = 1 << 20
+    flags = t(rng.random(size) < 0.05, cuda)
+    v1 = t(rng.integers(0, 9, size).astype(np.int32), cuda)
+    v4 = t(rng.normal(0, 1, (size, 4)).astype(np.float32), cuda)
+    dense = t(flag_inputs(47, 4 << 20, 3585), cuda)
+    calls = {
+        "segscan_kernel": (lambda: segscan.segmented_scan(v1, flags, "add", True),
+                           lambda: segscan.segmented_scan(v4, flags, "add", True)),
+        "compact_indices_kernel": (lambda: compactidx.compact_indices(dense, 4096),),
+    }
+    for name, fns in calls.items():
+        for fn in fns:
+            kernels, memsets = device_kernels(fn)
+            assert len(kernels) == 1 and name in kernels[0], kernels
+            assert len(memsets) <= 1, memsets
 
 
 @pytest.mark.cuda
@@ -568,17 +737,36 @@ def test_obb_wrappers_make_no_host_sync(cuda):
             assert torch.equal(got[key], ref[key]), key
 
 
+COMPACT_INDEX_CASES = {  # id: (size, n_set, m, offset (a view flag[offset:]), set only in the last tile)
+    "fewer": (4 << 20, 3500, 4096, 0, False),
+    "exactly-m": (100_003, 4096, 4096, 0, False),
+    "more": (100_003, 9000, 4096, 0, False),
+    "none-set": (7, 0, 3, 0, False),
+    "n1-set": (1, 1, 4, 0, False),
+    "n1-unset": (1, 0, 4, 0, False),
+    "last-tile": (4096 * 300 + 3000, 500, 4096, 0, True),
+    "unaligned": (100_003, 2000, 4096, 1, False),
+    "m>n": (3000, 1500, 5000, 0, False),
+    "all-set": (50_000, 50_000, 4096, 0, False),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "size,n_set,m",
-    [(4 << 20, 3500, 4096), (100_003, 4096, 4096), (100_003, 9000, 4096), (7, 0, 3)],
-    ids=["fewer", "exactly-m", "more", "none-set"],
-)
-def test_compact_indices_kernel_matches_plain(cuda, size, n_set, m):
-    flag = t(flag_inputs(15, size, n_set), cuda)
+@pytest.mark.parametrize("case", list(COMPACT_INDEX_CASES), ids=list(COMPACT_INDEX_CASES))
+def test_compact_indices_kernel_matches_plain(cuda, case):
+    size, n_set, m, offset, last_tile = COMPACT_INDEX_CASES[case]
+    if last_tile:
+        flag = np.zeros(size, bool)
+        tail = size % 4096  # the last rows, in the last (ragged) tile
+        flag[size - tail:] = flag_inputs(15, tail, n_set)
+    else:
+        flag = flag_inputs(15, size + offset, n_set)
+    flag = t(flag, cuda)[offset:]
+    before = compactidx.launches
     got = compactidx.compact_indices(flag, m)
     ref = compactidx.compact_indices_plain(flag, m)
     torch.cuda.synchronize()
+    assert compactidx.launches == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, ref)
 
 

@@ -30,6 +30,7 @@ from pointcloudhookup_tpu.ops.pallas.obb_accum import (
     obb_accumulate_reference,
     obb_accumulate_xyz_reference,
 )
+from pointcloudhookup_tpu.ops.pallas.segscan import segmented_scan_pallas
 from pointcloudhookup_tpu.ops.segments import segmented_scan as jax_segmented_scan
 from pointcloudhookup_tpu_torch.ops.kernels import (
     cluster_converge,
@@ -96,6 +97,43 @@ def test_segscan_plain_matches_reference(op, dtype, reverse):
         _JNP_OPS[op], jnp.asarray(vals), jnp.asarray(flags), reverse=reverse
     )
     got = segscan.segmented_scan(t(vals), t(flags), op, reverse)
+    np.testing.assert_array_equal(n(got), np.asarray(ref))
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["i32", "f32"])
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+def test_segscan_plain_matches_pallas_kernel(op, dtype, reverse):
+    """Against the Pallas kernel the JAX package runs on its accelerator, in
+    interpret mode, with four grid steps so the carry crosses blocks.
+    Integer sums, max and min are bit-identical; float32 sums agree to the
+    tolerance of tests/test_segscan_pallas.py (the kernel adds lanes, then
+    sublanes, in another order than the doubling scan)."""
+    vals, flags = scan_inputs(11, 4096, dtype)
+    ref = np.asarray(segmented_scan_pallas(
+        jnp.asarray(vals), jnp.asarray(flags), op=op, reverse=reverse, block=1024,
+        interpret=True,
+    ))
+    got = n(segscan.segmented_scan(t(vals), t(flags), op, reverse))
+    if dtype == np.float32 and op == "add":
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_segscan_plain_columns_match_reference(reverse):
+    """The centroid-voxel call: one scan of the stacked [N, 4] columns, bit
+    for bit the JAX package's segmented_scan of the same [N, 4] input."""
+    rng = np.random.default_rng(12)
+    size = 3001
+    xyz = rng.normal(0, 30, (size, 3)).astype(np.float32)
+    w = (rng.random(size) < 0.8).astype(np.float32)
+    vals = np.concatenate([xyz * w[:, None], w[:, None]], axis=1)
+    flags = rng.random(size) < 0.2
+    ref = jax_segmented_scan(jnp.add, jnp.asarray(vals), jnp.asarray(flags), reverse=reverse)
+    got = segscan.segmented_scan(t(vals), t(flags), "add", reverse)
+    assert got.shape == (size, 4)
     np.testing.assert_array_equal(n(got), np.asarray(ref))
 
 
@@ -224,6 +262,21 @@ def test_compact_indices_plain_matches_kernel_interpret(n_set):
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(got, oracle)
     assert got.dtype == np.int32 and (got[n_set:] == 32767).all()
+
+
+@pytest.mark.parametrize(
+    "size,n_set,m",
+    [(5000, 700, 0), (5000, 0, 64), (5000, 5000, 4096), (3000, 1200, 5000)],
+    ids=["m0", "none-set", "all-set", "m>n"],
+)
+def test_compact_indices_plain_edge_cases(size, n_set, m):
+    """Against the XLA oracle: no slot, no set flag (every slot n - 1),
+    every flag set with m < n, and more slots than rows."""
+    flag = flag_inputs(18, size, n_set)
+    got = n(compactidx.compact_indices(t(flag), m))
+    ref = np.asarray(compact_indices_reference(jnp.asarray(flag), m))
+    assert got.dtype == np.int32 and got.shape == (m,)
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_obb_accumulate_plain_matches_kernel_interpret():
