@@ -37,6 +37,16 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      plain versions on the CPU, and tower centres within 1 mm: pre-cut
      "full", each sort mode of phase 7, the sort-based OBB and centroid
      voxels;
+  8. the modular path (extract_step) through its user entry points, with
+     every kernel's plain version made to raise: (a) extract() of a LAS
+     file holding a 196,608-point corridor tile (auto routes it to dbscan),
+     every tower found within 2 m; (b) the fast=False resolver on the 4M
+     tile with max_clusters halved until the top tile saturates, its
+     quadrants on dbscan, 24/24 and resolved; (c) the 4M tile with
+     method "grid" at a capacity with no exact plan (grid_dbscan and the
+     density-floor retry), towers, floor and cells_overflow printed; wall
+     and device-busy ms of each; (d) entry()'s batch and a 100,000-row
+     per-chunk tile on the GPU vs the plain versions on the CPU;
   3. runs each kernel and its plain PyTorch version on the same device
      tensors at the shapes the paths give it, requires agreement (integer
      outputs, pop, counts and extremes identical; OBB sums within the f32
@@ -59,10 +69,14 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      sort-mode tile's cell populations, the centroid-voxel sums of four
      float32 columns, within the summation bound and bit-equal over two
      calls), torch.cumsum of the same int32 rows for scale, and a check
-     that a segscan or compact_indices call launches one kernel.
+     that a segscan or compact_indices call launches one kernel; and the
+     modular path's calls of phase 8 (cluster_converge on dbscan's
+     cell-sorted rows, timed also on the same rows in input order, and on
+     the grid table; segscan and compactrows at grid_dbscan's calls,
+     segscan also with the cut rows as one segment for comparison).
 
 Launch counts are reset just before each path's run (1, 4, 5, each mode of
-7) and read just after.  Prints the card's name and power limit, one JSON line of
+7, 8 (a)-(c)) and read just after.  Prints the card's name and power limit, one JSON line of
 per-kernel results, and as its last line {"ok": true, "device": {...}}.
 Any failure raises: the exit code is non-zero and the last line is not
 printed.  It imports nothing of JAX or of the JAX package.
@@ -70,6 +84,8 @@ printed.  It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import importlib
 import json
 import os
@@ -84,6 +100,7 @@ import torch
 N_POINTS = 4 * 1024 * 1024
 SEED = 7
 TOWER_TOL_M = 2.0
+N_SMALL = 196_608  # phase 8 (a): below auto_grid_threshold, so extract() runs dbscan
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 BENCH_ITERS = 10
@@ -232,6 +249,234 @@ def nearest_xy(centers, xy) -> float:
     the given positions."""
     dist = np.linalg.norm(centers[:, None, :2] - np.asarray(xy)[None, :, :2], axis=2)
     return float(dist.min(axis=1).max())
+
+
+def modular_tile(n: int, seed: int):
+    """A corridor tile of exactly n points below auto_grid_threshold, with
+    the bench tile's 24 towers and shares (80 % ground, 12 % vegetation),
+    in world coordinates (f64)."""
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
+
+    xs = np.linspace(-1800, 1800, 24)
+    n_veg, per_tower = int(n * 0.12), int(n * 0.08) // 24
+    pts, centers = synthetic_corridor(
+        np.random.default_rng(seed), n_ground=n - n_veg - 24 * per_tower, n_veg=n_veg,
+        towers=tuple(zip(xs, 80.0 * np.sin(xs / 500.0))), pts_per_tower=per_tower,
+        extent=2000.0, n_line=0,
+    )
+    assert len(pts) == n
+    return pts, centers
+
+
+@contextlib.contextmanager
+def recording(module, attr, calls):
+    """Append the (args, kwargs) of every call of module.attr made while the
+    block runs to calls; the calls go through."""
+    fn = getattr(module, attr)
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, attr, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, fn)
+
+
+@contextlib.contextmanager
+def no_plain_versions(modules):
+    """Every ``*_plain`` function of the given kernel modules raises while
+    the block runs: on the card no path may run a kernel's plain version."""
+    saved = []
+
+    def refuse(name):
+        def fn(*args, **kwargs):
+            raise AssertionError(f"{name} ran on a path on the card")
+        return fn
+
+    for mod in modules:
+        for name in dir(mod):
+            if name.endswith("_plain") and callable(getattr(mod, name)):
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, refuse(f"{mod.__name__}.{name}"))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def modular_phase(dev, pts, centers, reset_counts, read_counts, profile=None,
+                  n_small: int = N_SMALL, n_chunked: int = 100_000):
+    """Phase 8: the modular extraction path (extract_step) through its user
+    entry points, with no kernel's plain version allowed in (a)-(c):
+
+      (a) extract() of a LAS file holding an n_small-point corridor tile,
+          default parameters: auto routes it to dbscan; every generated
+          tower found, its member centroid within TOWER_TOL_M (xy);
+      (b) extract_from_points_resolving(fast=False) on the big tile with
+          max_clusters halved from 128 until the top tile saturates: the
+          top tile takes the exact path, its quadrants (below
+          auto_grid_threshold) dbscan; every tower found, resolved;
+      (c) the big tile with ClusterParams(method="grid") at a capacity
+          1,024 above its size (no exact plan): grid_dbscan with the
+          density-floor retry; towers found, the settled floor and
+          cells_overflow printed;
+      (d) entry()'s batch and an n_chunked-row per-chunk tile on ``dev``
+          and through the plain versions on the CPU: labels, keep, counts
+          and accepted identical, accepted centres within 1 mm.
+
+    Wall ms (host clock) and, with ``profile``, device-busy ms of one more
+    run of (a)-(c) are printed.  Returns (results, launches by run, the
+    kernel calls (a) and (c) made, for phase 3)."""
+    from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams
+    from pointcloudhookup_tpu_torch.entry import entry
+    from pointcloudhookup_tpu_torch.io.las import make_las, write_las
+    from pointcloudhookup_tpu_torch.models import overflow, pipeline
+    from pointcloudhookup_tpu_torch.ops import cluster, cluster_grid, segments
+    from pointcloudhookup_tpu_torch.ops.kernels import (
+        cluster_converge, compactrows, neighbor, obb_accum, segscan,
+    )
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def wall(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def busy(fn):
+        if profile is None:
+            return None
+        return profile(fn, top=0)["device_ms"]
+
+    def require_towers(label, towers, tol=TOWER_TOL_M):
+        got = [t.centroid for t in towers]
+        worst = nearest_xy(centers_for[label], got) if got else float("inf")
+        print(f"{label}: {len(towers)} towers, worst generated-tower distance to the "
+              f"nearest member centroid {worst:.3f} m (xy)")
+        if len(towers) != len(centers_for[label]) or worst > tol:
+            raise AssertionError(f"{label}: {len(towers)} of {len(centers_for[label])} "
+                                 f"towers, worst centroid distance {worst:.2f} m")
+
+    kernels = (cluster_converge, compactrows, neighbor, obb_accum, segscan)
+    results, launches = {}, {}
+    calls = {"dbscan": [], "grid_scans": [], "grid_pack": [], "grid_cells": []}
+    small_pts, small_centers = modular_tile(n_small, SEED)
+    centers_for = {"(a) extract()": small_centers, "(b) resolver, fast=False": centers}
+
+    # ---- (a) extract() below auto_grid_threshold: dbscan
+    params = ExtractParams()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        las_path = os.path.join(tmp, "corridor_small.las")
+        write_las(make_las(small_pts), las_path)
+        logs = []
+        run_a = lambda: pipeline.extract(las_path, device=dev, log_callback=logs.append)  # noqa: E731
+        with no_plain_versions(kernels):
+            reset_counts()
+            with recording(cluster, "cluster_cells", calls["dbscan"]):
+                ms_a, towers = wall(run_a)
+            launches["modular_dbscan"] = read_counts(("cluster_converge",), "(a) extract()")
+            ms_a2, _ = wall(run_a)
+            busy_a = busy(run_a)
+    route = next(line for line in logs if "path:" in line)
+    print(f"(a) extract() of {n_small} points: {route}; wall ms {ms_a:.1f} (first), "
+          f"{ms_a2:.1f} (second); device busy {busy_a} ms")
+    if not route.startswith("modular path") or len(calls["dbscan"]) != 1:
+        raise AssertionError(f"(a) did not run dbscan once: {route}")
+    require_towers("(a) extract()", towers)
+    results["a"] = dict(points=n_small, wall_ms=[ms_a, ms_a2], device_ms=busy_a,
+                        towers=len(towers), route=route)
+
+    # ---- (b) the fast=False resolver on a saturated big tile
+    max_clusters = 128
+    while True:
+        p_b = dataclasses.replace(params, max_clusters=max_clusters)
+        _, top, _ = pipeline.extract_from_points(pts, p_b, device=dev)
+        if overflow.saturated(top, p_b) or max_clusters <= 2:
+            break
+        max_clusters //= 2
+    print(f"(b) max_clusters {max_clusters}: the top tile saturates "
+          f"({int(top['alive'].sum())} clusters alive)")
+    modular_runs = []
+    run_b = lambda: overflow.extract_from_points_resolving(pts, p_b, fast=False, device=dev)  # noqa: E731
+    with no_plain_versions(kernels):
+        reset_counts()
+        with recording(pipeline, "_extract_stats_modular", modular_runs):
+            ms_b, (towers_b, info) = wall(run_b)
+        launches["modular_resolver"] = read_counts(EXACT_PATH, "(b) resolver, fast=False")
+        busy_b = busy(run_b)
+    sizes = [int(args[1].sum()) for args, _ in modular_runs]
+    print(f"(b) resolver, fast=False: wall ms {ms_b:.1f}, device busy {busy_b} ms; {info}; "
+          f"{len(modular_runs)} tiles of {sizes} points on the modular path (the others "
+          f"above auto_grid_threshold take the exact path)")
+    require_towers("(b) resolver, fast=False", towers_b)
+    if not info["resolved"] or not info["saturated_tiles"] or not modular_runs:
+        raise AssertionError(f"(b) resolver: {info}, {len(modular_runs)} modular tiles")
+    results["b"] = dict(max_clusters=max_clusters, wall_ms=ms_b, device_ms=busy_b,
+                        info=info, modular_tiles=sizes, towers=len(towers_b))
+
+    # ---- (c) grid_dbscan on the big tile at a capacity with no exact plan
+    p_c = ExtractParams(cluster=ClusterParams(method="grid"))
+    cap_c = -(-len(pts) // 1024) * 1024 + 1024
+    run_c = lambda: pipeline.extract_from_points(pts, p_c, capacity=cap_c, device=dev)  # noqa: E731
+    with no_plain_versions(kernels):
+        reset_counts()
+        with recording(cluster_grid, "cluster_cells", calls["grid_cells"]), \
+                recording(cluster_grid, "compact_rows_multi", calls["grid_pack"]), \
+                recording(segments.segscan, "segmented_scan", calls["grid_scans"]):
+            ms_c, (towers_c, stats_c, _) = wall(run_c)
+        launches["modular_grid"] = read_counts(("compactrows", "segscan", "cluster_converge"),
+                                               "(c) grid")
+        busy_c = busy(run_c)
+    mod = stats_c["modular"]
+    if not calls["grid_cells"]:
+        raise AssertionError("(c) did not run grid_dbscan")
+    cents = np.array([t.centroid for t in towers_c]).reshape(-1, 3)
+    found = int((np.linalg.norm(centers[:, None, :2] - cents[None, :, :2], axis=2)
+                 .min(axis=1, initial=np.inf) <= TOWER_TOL_M).sum())
+    print(f"(c) grid, capacity {cap_c}: grid_dbscan, density floor {mod['floor']}, "
+          f"cells_overflow {mod['cells_overflow']}; towers {len(towers_c)} accepted, {found} "
+          f"within {TOWER_TOL_M} m of a generated one, {len(centers)} generated; wall ms "
+          f"{ms_c:.1f}, device busy {busy_c} ms")
+    results["c"] = dict(capacity=cap_c, floor=mod["floor"],
+                        cells_overflow=mod["cells_overflow"], towers=len(towers_c),
+                        towers_near=found, towers_expected=len(centers), wall_ms=ms_c,
+                        device_ms=busy_c)
+
+    # ---- (d) on dev vs the plain versions on the CPU
+    def same(label, got, ref):
+        for key in ("labels", "ground_keep", "count", "accepted"):
+            if not np.array_equal(np.asarray(got[key]), np.asarray(ref[key])):
+                raise AssertionError(f"(d) {label}: {dev} and CPU differ in {key}")
+        acc = np.asarray(ref["accepted"])
+        d = np.abs(np.asarray(got["center"])[acc] - np.asarray(ref["center"])[acc])
+        err = float(d.max()) if d.size else 0.0
+        if err > 1e-3:
+            raise AssertionError(f"(d) {label}: tower centres differ by {err} m")
+        print(f"(d) {label}: {dev} == CPU plain versions ({int(acc.sum())} towers, centres "
+              f"within {err} m)")
+
+    fn, (x, m) = entry(dev)
+    same("entry() batch", {k: v.cpu() for k, v in fn(x, m).items()}, fn(x.cpu(), m.cpu()))
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
+
+    pts_d, _ = synthetic_corridor(
+        np.random.default_rng(11), n_ground=int(n_chunked * 0.8),
+        n_veg=int(n_chunked * 0.12), pts_per_tower=(n_chunked - int(n_chunked * 0.92)) // 3,
+        extent=300.0,
+    )
+    p_d = ExtractParams(cluster=ClusterParams(per_chunk=True))
+    _, s_dev, _ = pipeline.extract_from_points(pts_d, p_d, device=dev)
+    _, s_cpu, _ = pipeline.extract_from_points(pts_d, p_d, device="cpu")
+    same(f"{s_cpu['labels'].shape[0]}-row per-chunk tile", s_dev, s_cpu)
+    return results, launches, calls
 
 
 def main() -> int:
@@ -512,6 +757,13 @@ def main() -> int:
               f"end's cut, hier_runs_over {float(out_c['hier_runs_over'])}): GPU == CPU plain "
               f"versions ({int(acc6.sum())} towers, centres within "
               f"{float(d6.max()) if d6.numel() else 0.0} m)")
+
+    # ---- 8. the modular path (extract_step): dbscan, the fast=False
+    # resolver, grid_dbscan, and GPU == CPU on entry()'s batch and a
+    # per-chunk tile
+    modular, modular_launches, modular_calls = modular_phase(
+        dev, pts, centers, reset_counts, read_counts, profile=profile_iteration)
+    launches.update(modular_launches)
 
     # ---- 3. each kernel vs its plain version at the paths' shapes.
     # Exact path: inputs as extract_from_points pads them; capacities as
@@ -800,20 +1052,10 @@ def main() -> int:
     # segscan at the fast path's shapes, taken from the path's own calls:
     # the cell populations (add reverse) of the bench run with the pre-cut
     # and of the sort-mode tile, and the centroid-voxel sums of four columns
-    def captured_scans(run):
-        calls = []
-        kernel = segscan.segmented_scan
-
-        def record(values, is_start, op="add", reverse=False):
-            calls.append((values, is_start, op, reverse))
-            return kernel(values, is_start, op, reverse)
-
-        segscan.segmented_scan = record
-        try:
+    def captured_scans(run):  # every caller passes the four arguments
+        with recording(segscan, "segmented_scan", []) as calls:
             run()
-        finally:
-            segscan.segmented_scan = kernel
-        return calls
+        return [args for args, _ in calls]
 
     def cell_population(calls):
         return next(c for c in calls if c[2] == "add" and c[3] and c[0].dim() == 1)
@@ -942,6 +1184,72 @@ def main() -> int:
              exact("mergesort"), nbytes=na * 16,
              library_fn=lambda packed=packed: torch.sort(packed))
 
+    # the modular path's calls (phase 8): cluster_converge on dbscan's rows
+    # (cell-sorted, as dbscan hands them over) and on the grid table;
+    # segscan and compactrows at grid_dbscan's calls (the settled run)
+    for label, (args, _) in (("dbscan rows (8a), cell-sorted", modular_calls["dbscan"][-1]),
+                             ("grid table (8c)", modular_calls["grid_cells"][-1])):
+        mp = args[5]
+        pairs, all_pairs, nc = converge_pairs(args[0], args[1], args[2], mp)
+        case("cluster_converge",
+             f"{label} M={args[0].shape[0]} ({int(args[2].sum())} live), min_points "
+             f"{mp:g}, {nc} core",
+             lambda a=args: cluster_converge.cluster_cells(*a),
+             lambda a=args: cluster_converge.cluster_cells_plain(*a),
+             exact("cluster_converge"), nbytes=args[0].shape[0] * (12 + 4 + 1 + 4 + 4 + 4),
+             pairs=pairs, all_pairs=all_pairs, plain_reps=1)
+    # the same dbscan call on rows in input order: the kernel culls by row
+    # boxes, which then span the tile.  labels0 carries the input row, so
+    # the result is the same, permuted
+    args = modular_calls["dbscan"][-1][0]
+    src = args[3].long()
+
+    def unsorted(v):
+        out = torch.empty_like(v)
+        out[src] = v
+        return out
+
+    args_u = tuple(unsorted(v).contiguous() for v in args[:4]) + tuple(args[4:])
+    got_u = cluster_converge.cluster_cells(*args_u)
+    require_equal("cluster_converge (input order)", [v[src] for v in got_u],
+                  list(cluster_converge.cluster_cells(*args)))
+    order_ms = {}
+    for label, a in (("cell-sorted", args), ("input order", args_u)):
+        ms_o = timed(lambda a=a: cluster_converge.cluster_cells(*a), 5)[0]
+        order_ms[label] = dict(ms=ms_o, device_ms=profile_iteration(
+            lambda a=a: cluster_converge.cluster_cells(*a))["device_ms"])
+    print(f"cluster_converge on dbscan's rows (8a), M={args[0].shape[0]}: {order_ms} "
+          f"(event ms of 5 calls / device ms of one)")
+    for (vals, flags, op, rev), _ in modular_calls["grid_scans"][-2:]:
+        case("segscan", f"grid (8c): {op} {'reverse' if rev else 'forward'} i32[{vals.shape[0]}]",
+             lambda v=vals, f=flags, o=op, r=rev: segscan.segmented_scan(v, f, o, r),
+             lambda v=vals, f=flags, o=op, r=rev: segscan.segmented_scan_plain(v, f, o, r),
+             exact("segscan"), nbytes=vals.shape[0] * (4 + 1 + 4))
+    # grid_dbscan makes each masked row (sorted last) a segment of its own;
+    # the same scans with those rows as one segment give the same outputs:
+    # both timed here, in one process
+    grid_scans = [args for args, _ in modular_calls["grid_scans"][-2:]]
+    dead = grid_scans[0][0] == 0  # the add scan's values: 1 on live rows
+    one_dead_segment = grid_scans[0][1] & ~(dead & torch.roll(dead, 1))
+    for vals, flags, op, rev in grid_scans:
+        ab = {}
+        for label, f in (("dead rows each a segment", flags),
+                         ("dead rows one segment", one_dead_segment)):
+            fn = lambda v=vals, f=f, o=op, r=rev: segscan.segmented_scan(v, f, o, r)
+            ab[label] = (timed(fn, 5)[0], profile_iteration(fn)["device_ms"])
+        require_equal("segscan (dead-row flags)", [segscan.segmented_scan(
+            vals, one_dead_segment, op, rev)], [segscan.segmented_scan(vals, flags, op, rev)])
+        print(f"segscan grid (8c) {op} {'reverse' if rev else 'forward'}, "
+              f"{int(dead.sum())} dead rows: (event ms of 5 calls, device ms of one) {ab}")
+    (keep_g, chans_g, m_g), _ = modular_calls["grid_pack"][-1]
+    stacked_g = torch.stack(chans_g)
+    case("compactrows",
+         f"grid table (8c) keep[{keep_g.shape[0]}] ({int(keep_g.sum())} set) x4 -> m {m_g}",
+         lambda: compactrows.compact_rows_multi(keep_g, chans_g, m_g),
+         lambda: compactrows.compact_rows_multi_plain(keep_g, chans_g, m_g),
+         exact("compactrows"), nbytes=compact_bytes(keep_g, 4, m_g),
+         library_fn=lambda: stacked_g[:, keep_g])
+
     entries = []
     for name, (source, replaces, _) in KERNELS.items():
         cases = results[name]
@@ -969,7 +1277,8 @@ def main() -> int:
         card=smi, build_s=build_s, extract_ms=walls[1], extract_first_ms=walls[0],
         resolver_fast_ms=resolver_ms, resolver_info=info,
         bench_precut_div=precut_div, bench=bench, bench_profile=profile,
-        sort_modes=sort_modes, mergesort_parts=mergesort_parts,
+        sort_modes=sort_modes, mergesort_parts=mergesort_parts, modular=modular,
+        cluster_converge_row_order=order_ms,
     )))
     print(json.dumps(dict(kernels=entries)))
     print(json.dumps(dict(

@@ -72,14 +72,14 @@ def main(argv=None):
     sp.add_argument(
         "--cluster-method", default="auto",
         choices=["auto", "exact", "grid", "adaptive"],
-        help="clustering backend; only auto/grid tiles that take the exact "
-             "path are ported so far",
+        help="clustering backend; 'adaptive' derives eps from the data "
+             "(the reference's HDBSCAN-path analogue)",
     )
     sp.add_argument("--output-dir", help="save per-tower LAS files here")
     sp.add_argument("--excel", help="towers_info table path")
     sp.add_argument(
         "--per-chunk", action="store_true",
-        help="reference-parity per-50k-chunk clustering (not ported yet)",
+        help="reference-parity per-50k-chunk clustering (labels never merge across chunks)",
     )
     sp.add_argument(
         "--device", default="cuda",

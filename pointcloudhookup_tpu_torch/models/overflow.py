@@ -72,10 +72,11 @@ def extract_from_points_resolving(
 ):
     """Extraction with capacity-overflow resolution on ``device``.
 
-    fast=True runs the fused fast path (``_fast_extract``), fast=False the
-    exact path (``models/pipeline.py::extract_from_points``, which raises
-    NotImplementedError on tiles the JAX package would hand to its
-    modular path).  Returns (towers, info) where info = dict(
+    fast=True runs the fused fast path (``_fast_extract``), fast=False
+    ``models/pipeline.py::extract_from_points``: the exact path where a
+    (sub-)tile is eligible, the modular ``extract_step`` otherwise (a
+    saturated tile's quadrants fall below auto_grid_threshold and run
+    ``dbscan``).  Returns (towers, info) where info = dict(
     saturated_tiles, tiles_run, max_depth_used, resolved); ``resolved``
     is False only if saturation persisted at max_depth."""
     points = np.asarray(points, np.float64).reshape(-1, 3)

@@ -1,19 +1,20 @@
 """Headless extraction API.
 
-Counterpart of ``pointcloudhookup_tpu/models/pipeline.py`` for the exact
-extraction path: ``extract`` (LAS in, towers out) -> ``extract_from_points``
--> ``_exact_fast_plan`` / ``_extract_stats_exact_fast`` (the capacity
-retry ladder) -> ``ops/frontend_exact.py::exact_extract_graph``.  The
+Counterpart of ``pointcloudhookup_tpu/models/pipeline.py`` for tower
+extraction: ``extract`` (LAS in, towers out) -> ``extract_from_points``,
+which routes a tile as the JAX package does: to the exact path
+(``_exact_fast_plan`` / ``_extract_stats_exact_fast``, the capacity retry
+ladder, ``ops/frontend_exact.py::exact_extract_graph``) where it is
+eligible, otherwise, and where the exact path gives up, to the modular
+``models/towers.py::extract_step`` with its density-floor retry.  The
 device is explicit (``device=``): there is no fallback to the CPU when
-CUDA is missing, and no silent fallback to another path.  Tiles the JAX
-package would hand to the modular ``extract_step`` raise
-NotImplementedError here until that path is ported (ROADMAP module
-item 7).
+CUDA is missing.
 """
 
 from __future__ import annotations
 
 import csv
+import dataclasses
 import os
 from typing import Optional, Sequence
 
@@ -29,17 +30,12 @@ from pointcloudhookup_tpu_torch.config import (
 from pointcloudhookup_tpu_torch.io.las import make_las, read_las, write_las
 from pointcloudhookup_tpu_torch.utils.logging import Reporter
 from pointcloudhookup_tpu_torch.core.batch import round_up
-from pointcloudhookup_tpu_torch.models.towers import Tower, towers_from_stats
+from pointcloudhookup_tpu_torch.models.towers import Tower, extract_step, towers_from_stats
 from pointcloudhookup_tpu_torch.ops.frontend_exact import (
     exact_cell_plan,
     exact_extract_graph,
 )
 from pointcloudhookup_tpu_torch.state import to_numpy
-
-_MODULAR = (
-    "the modular extraction path (extract_step) is not ported yet "
-    "(ROADMAP module item 7)"
-)
 
 
 def extract(
@@ -88,11 +84,17 @@ def extract(
     rep.log(f"read {len(pts)} points")
 
     towers, stats, origin = extract_from_points(pts, params, device=device)
-    ladder = stats["ladder"]
-    rep.log(
-        "exact path: density floor {floor}, core_cap {core_cap}, "
-        "compact_cap {compact_cap}, compact_count {compact_count}".format(**ladder)
-    )
+    if "ladder" in stats:
+        rep.log(
+            "exact path: density floor {floor}, core_cap {core_cap}, "
+            "compact_cap {compact_cap}, compact_count {compact_count}".format(
+                **stats["ladder"])
+        )
+    else:
+        rep.log(
+            "modular path: density floor {floor}, cells_overflow {cells_overflow}".format(
+                **stats["modular"])
+        )
     rep.progress(90)
 
     if output_dir:
@@ -212,8 +214,14 @@ def extract_from_points(
 ) -> tuple[list[Tower], dict, np.ndarray]:
     """Extraction from an in-memory f64[N,3] world-coordinate array on
     ``device``.  Returns (towers, stats dict as numpy, origin).
-    ``capacity`` pins the padded buffer size.  Raises NotImplementedError
-    where the JAX package would take its modular path."""
+    ``capacity`` pins the padded buffer size.
+
+    Eligible tiles take the exact path (stats gain 'ladder'); the others,
+    and tiles with more core cells than the exact path's largest flood
+    table, take the modular ``extract_step``, re-run with a doubled
+    density floor (up to 16) while dense grid cells overflow the table, as
+    the JAX package does (stats gain 'modular': the settled floor and its
+    cells_overflow)."""
     points = np.asarray(points, np.float64).reshape(-1, 3)
     origin = points.mean(axis=0) if len(points) else np.zeros(3)
     if capacity is not None:
@@ -230,18 +238,33 @@ def extract_from_points(
     mask[: len(points)] = True
 
     plan = _exact_fast_plan(points, params, cap)
-    if plan is None:
-        raise NotImplementedError(
-            f"tile of {len(points)} points (capacity {cap}, cluster method "
-            f"{params.cluster.method!r}, per_chunk {params.cluster.per_chunk}) "
-            f"is not eligible for the exact path, and {_MODULAR}"
-        )
-    stats = _extract_stats_exact_fast(xyz, mask, params, plan, device=device)
-    if stats is None:
-        raise NotImplementedError(
-            f"more core cells than the largest flood table (32768), and {_MODULAR}"
-        )
+    if plan is not None:
+        stats = _extract_stats_exact_fast(xyz, mask, params, plan, device=device)
+        if stats is not None:
+            return towers_from_stats(stats, origin), stats, origin
+    stats = _extract_stats_modular(xyz, mask, params, device=device)
     return towers_from_stats(stats, origin), stats, origin
+
+
+def _extract_stats_modular(xyz: np.ndarray, mask: np.ndarray, params: ExtractParams,
+                           device="cuda") -> dict:
+    """Run ``extract_step`` under the JAX package's density-floor retry: a
+    grid table overflow drops dense cells (whole towers, at corridor
+    scale), so the step re-runs with the floor doubled (at least 2, at
+    most 16) while cells_overflow > 0.  Returns the numpy stats with
+    'modular' = dict(floor, cells_overflow)."""
+    xyz_t = torch.from_numpy(xyz).to(device)
+    mask_t = torch.from_numpy(mask).to(device)
+    floor = params.cluster.min_cell_points
+    stats = to_numpy(extract_step(xyz_t, mask_t, params))
+    while float(stats["cells_overflow"]) > 0.0 and floor < 16:
+        floor = min(floor * 2 if floor > 1 else 2, 16)
+        retry = dataclasses.replace(
+            params, cluster=dataclasses.replace(params.cluster, min_cell_points=floor)
+        )
+        stats = to_numpy(extract_step(xyz_t, mask_t, retry))
+    stats["modular"] = dict(floor=floor, cells_overflow=float(stats["cells_overflow"]))
+    return stats
 
 
 _TABLE_HEADERS = ("ID", "经度", "纬度", "海拔高度", "杆塔高度", "北方向偏角", "宽度", "长宽比")

@@ -1,9 +1,10 @@
-"""Tower schema, acceptance filters and duplicate suppression.
+"""Tower schema, the modular extraction step, acceptance filters and
+duplicate suppression.
 
 Counterpart of ``pointcloudhookup_tpu/models/towers.py`` (``Tower``,
-``filter_and_dedup``, ``towers_from_stats``).  The port's ``Tower`` also
-carries the member centroid: a box centre spans the border cells a
-cluster adopts, so checks locate a tower by its centroid.
+``extract_step``, ``filter_and_dedup``, ``towers_from_stats``).  The port's
+``Tower`` also carries the member centroid: a box centre spans the border
+cells a cluster adopts, so checks locate a tower by its centroid.
 """
 
 from __future__ import annotations
@@ -14,7 +15,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pointcloudhookup_tpu_torch.config import TowerFilterParams
+from pointcloudhookup_tpu_torch.config import ExtractParams, TowerFilterParams
+from pointcloudhookup_tpu_torch.ops.cluster import compact_labels, dbscan, dbscan_chunked
+from pointcloudhookup_tpu_torch.ops.cluster_adaptive import adaptive_cluster
+from pointcloudhookup_tpu_torch.ops.cluster_grid import grid_dbscan
+from pointcloudhookup_tpu_torch.ops.ground import ground_filter
+from pointcloudhookup_tpu_torch.ops.obb import cluster_obb_stats
 
 
 @dataclasses.dataclass
@@ -69,6 +75,47 @@ def filter_and_dedup(stats: dict, fp: TowerFilterParams = TowerFilterParams()):
             break
         accepted = new
     return accepted
+
+
+def extract_step(xyz, mask, params: ExtractParams = ExtractParams()):
+    """The modular extraction step on the tensors' device: ground filter,
+    clustering, sort-based OBB stats, filters and dedup.
+
+    xyz float32[N,3] centred coordinates, mask bool[N].  The clustering is
+    the JAX function's choice: ``dbscan_chunked`` with per_chunk (labels
+    compacted over the chunks), ``adaptive_cluster`` for method
+    "adaptive", ``grid_dbscan`` for "grid" and for "auto" above
+    auto_grid_threshold rows, ``dbscan`` otherwise.  Returns a dict of
+    tensors: labels int32[N], ground_keep bool[N], base_height, accepted
+    bool[K], cells_overflow (dense cells beyond the grid table; 0 on the
+    other branches) and the per-cluster stats of ``cluster_obb_stats``."""
+    keep, base = ground_filter(xyz, mask, params.ground)
+    cp = params.cluster
+    n = xyz.shape[0]
+    cells_overflow = torch.zeros((), dtype=torch.float32, device=xyz.device)
+    if cp.per_chunk:
+        labels, _ = dbscan_chunked(xyz, keep, cp.eps, cp.min_points,
+                                   chunk_size=cp.chunk_size)
+        # chunk-offset labels are sparse: compact them to [0, K)
+        labels = compact_labels(torch.where(labels >= 0, labels, n), n)
+    elif cp.method == "adaptive":
+        labels, _, _ = adaptive_cluster(
+            xyz, keep, cp.min_points, min_cluster_size=cp.min_cluster_size,
+            max_cells=cp.max_cells, min_cell_points=cp.min_cell_points,
+            eps_fallback=cp.eps,
+        )
+    elif cp.method == "grid" or (cp.method == "auto" and n > cp.auto_grid_threshold):
+        labels, _, cells_overflow = grid_dbscan(
+            xyz, keep, cp.eps, cp.min_points, max_cells=cp.max_cells,
+            min_cell_points=cp.min_cell_points,
+        )
+    else:
+        labels, _ = dbscan(xyz, keep, cp.eps, cp.min_points)
+    stats = cluster_obb_stats(xyz, labels, keep, max_clusters=params.max_clusters,
+                              num_angles=params.obb_angles)
+    accepted = filter_and_dedup(stats, params.filters)
+    return dict(labels=labels, ground_keep=keep, base_height=base, accepted=accepted,
+                cells_overflow=cells_overflow, **stats)
 
 
 def towers_from_stats(stats: dict, origin: np.ndarray) -> list[Tower]:

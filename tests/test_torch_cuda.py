@@ -1080,3 +1080,156 @@ def test_kernels_refuse_cpu_mix(cuda):
     keep = torch.ones(8, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         compactrows.compact_rows_multi(keep, (torch.zeros(8, dtype=torch.int32),), 8)
+
+
+# ------------------------------------------------------------------
+# The modular extraction path on the card
+
+
+def corridor_rows(seed=42, cap=8192):
+    """tests/conftest.py's ~6.2k-point corridor, centred and padded."""
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
+
+    pts, _ = synthetic_corridor(
+        np.random.default_rng(seed), n_ground=4000, n_veg=800, pts_per_tower=400,
+        extent=250.0,
+    )
+    xyz = np.zeros((cap, 3), np.float32)
+    xyz[: len(pts)] = (pts - pts.mean(axis=0)).astype(np.float32)
+    return xyz, np.arange(cap) < len(pts)
+
+
+def modular_calls():
+    """name -> f(xyz, keep): the clustering functions of extract_step."""
+    from pointcloudhookup_tpu_torch.ops import cluster, cluster_adaptive, cluster_grid
+
+    return {
+        "dbscan": lambda x, m: cluster.dbscan(x, m, 5.0, 30),
+        "dbscan_chunked": lambda x, m: cluster.dbscan_chunked(x, m, 5.0, 30,
+                                                              chunk_size=4096),
+        "grid_dbscan": lambda x, m: cluster_grid.grid_dbscan(
+            x, m, 7.3, 30, max_cells=4096),
+        "grid_dbscan-tensor-eps": lambda x, m: cluster_grid.grid_dbscan(
+            x, m, torch.tensor(6.0, device=x.device), 30, max_cells=1024,
+            min_cell_points=2),
+        "adaptive_cluster": lambda x, m: cluster_adaptive.adaptive_cluster(
+            x, m, 12, max_cells=4096),
+    }
+
+
+def ground_keep(xyz, mask):
+    from pointcloudhookup_tpu_torch.config import GroundParams
+    from pointcloudhookup_tpu_torch.ops.ground import ground_filter
+
+    return ground_filter(xyz, mask, GroundParams(min_points_after=100))[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dbscan", "dbscan_chunked", "grid_dbscan",
+                                  "grid_dbscan-tensor-eps", "adaptive_cluster"])
+def test_modular_clustering_cuda_matches_cpu(cuda, name):
+    """Each clustering function of the modular path on the card equals its
+    run on the CPU (the kernels' plain versions): labels, core, the
+    overflow count and the adaptive eps identical."""
+    fn = modular_calls()[name]
+    xyz, mask = corridor_rows()
+    keep = ground_keep(t(xyz), t(mask))
+    ref = fn(t(xyz), keep)
+    got = fn(t(xyz, cuda), keep.to(cuda))
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g.cpu(), r)
+    assert int(ref[0].max()) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,rows", [("dbscan", 8192), ("dbscan_chunked", 4096),
+                                       ("grid_dbscan", 4096)])
+def test_modular_clustering_max_iters_cuda(cuda, name, rows):
+    """max_iters on the card: the kernels compute the fixpoint, so a bound
+    at or above the rows of one cluster_cells call (the tile, the chunk,
+    the cell table) gives the unbounded result, and a smaller one raises
+    (no rounds to truncate)."""
+    from pointcloudhookup_tpu_torch.ops import cluster, cluster_grid
+
+    fn = {
+        "dbscan": lambda x, m, **kw: cluster.dbscan(x, m, 5.0, 30, **kw),
+        "dbscan_chunked": lambda x, m, **kw: cluster.dbscan_chunked(
+            x, m, 5.0, 30, chunk_size=4096, **kw),
+        "grid_dbscan": lambda x, m, **kw: cluster_grid.grid_dbscan(
+            x, m, 7.3, 30, max_cells=4096, **kw),
+    }[name]
+    xyz, mask = corridor_rows()
+    x, keep = t(xyz, cuda), ground_keep(t(xyz, cuda), t(mask, cuda))
+    ref = fn(x, keep)
+    for g, r in zip(fn(x, keep, max_iters=rows), ref):
+        assert torch.equal(g, r)
+    with pytest.raises(ValueError, match="max_iter"):
+        fn(x, keep, max_iters=64)
+
+
+@pytest.mark.cuda
+def test_modular_clustering_makes_no_host_sync(cuda):
+    """dbscan, grid_dbscan and adaptive_cluster issue their work with no
+    device-to-host read: one cluster_cells call (its union-find kernels)
+    where the JAX package loops over Jacobi rounds, grid_dbscan's two
+    segscan calls and its compactrows table pack."""
+    xyz, mask = corridor_rows()
+    x, keep = t(xyz, cuda), ground_keep(t(xyz, cuda), t(mask, cuda))
+    calls = modular_calls()
+    for fn in calls.values():  # builds the library, warms the allocator
+        fn(x, keep)
+    torch.cuda.synchronize()
+    for name in ("dbscan", "grid_dbscan", "adaptive_cluster"):
+        before = (cluster_converge.launches, segscan.launches, compactrows.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            calls[name](x, keep)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ran = [a - b for a, b in zip(
+            (cluster_converge.launches, segscan.launches, compactrows.launches), before)]
+        assert ran == ([1, 0, 0] if name == "dbscan" else [1, 2, 1]), (name, ran)
+    kernels, _ = device_kernels(lambda: calls["dbscan"](x, keep))
+    for k in ("boxes_kernel", "pop_kernel", "union_kernel", "compress_kernel",
+              "border_kernel"):
+        assert any(k in name for name in kernels), (k, kernels)
+    kernels, _ = device_kernels(lambda: calls["grid_dbscan"](x, keep))
+    assert sum("segscan_kernel" in k for k in kernels) == 2, kernels
+    assert sum("compact_kernel" in k for k in kernels) == 1, kernels
+    assert any("union_kernel" in k for k in kernels), kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["auto", "exact", "grid", "adaptive", "per-chunk",
+                                    "entry"])
+def test_extract_step_cuda_matches_cpu(cuda, method):
+    """extract_step in each method on the card equals the CPU run: labels,
+    keep, counts, alive, accepted and cells_overflow identical, centres
+    within 1 mm (the OBB sums add in another order); "entry" is entry()'s
+    60,000-point batch with default parameters."""
+    from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams, GroundParams
+    from pointcloudhookup_tpu_torch.entry import entry
+    from pointcloudhookup_tpu_torch.models.towers import extract_step
+
+    if method == "entry":
+        fn, (x, m) = entry("cpu")
+        ref = fn(x, m)
+        got = fn(x.to(cuda), m.to(cuda))
+    else:
+        kw = dict(per_chunk=True, chunk_size=4096) if method == "per-chunk" else dict(
+            method=method)
+        params = ExtractParams(
+            ground=GroundParams(min_points_after=100),
+            cluster=ClusterParams(eps=5.0, min_points=30, max_cells=4096, **kw),
+            max_clusters=32, obb_angles=64,
+        )
+        xyz, mask = corridor_rows()
+        ref = extract_step(t(xyz), t(mask), params)
+        got = extract_step(t(xyz, cuda), t(mask, cuda), params)
+    for key in ("labels", "ground_keep", "count", "alive", "accepted", "cells_overflow",
+                "base_height"):
+        assert torch.equal(got[key].cpu(), ref[key]), key
+    assert int(ref["accepted"].sum()) == 3
+    acc = ref["accepted"]
+    np.testing.assert_allclose(n(got["center"])[n(acc)], n(ref["center"])[n(acc)], atol=1e-3)

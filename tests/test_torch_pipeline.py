@@ -1,7 +1,8 @@
 """The port's extraction pipeline: extract_from_points and its retry ladder
 against the JAX package on the tests/test_exact_frontend.py workload,
-extract() on a LAS file, the CLI, and the NotImplementedError raised
-where the JAX package would take its (not yet ported) modular path."""
+extract() on a LAS file, the CLI, and tiles the exact path does not take,
+which run the modular extract_step (tests/test_torch_modular.py holds
+that path in every method)."""
 
 import numpy as np
 import pytest
@@ -139,13 +140,28 @@ def test_cli_extract(tmp_path, capsys):
 @pytest.mark.parametrize(
     "cluster",
     [
-        ClusterParams(eps=5.0, min_points=30, method="grid"),
-        ClusterParams(eps=5.0, min_points=30, per_chunk=True),
+        ClusterParams(eps=5.0, min_points=30, method="grid", max_cells=4096),
+        ClusterParams(eps=5.0, min_points=30, per_chunk=True, chunk_size=4096),
         ClusterParams(eps=5.0, min_points=30, method="exact"),
     ],
     ids=["small-capacity", "per-chunk", "exact-dbscan"],
 )
 def test_ineligible_tile_raises(corridor, cluster):
+    """Tiles the exact path does not take (a capacity below
+    auto_grid_threshold, per_chunk, method "exact") run the modular
+    extract_step, as in the JAX package: the same labels, keep set, counts
+    and accepted towers as the JAX extract_from_points.  (The grid table
+    and the chunks are cut to 4,096 to keep the JAX side's O(M^2) XLA
+    passes short.)  The name is kept from when the port raised on these
+    tiles: it now checks that they run, and nothing raises."""
     pts, _ = corridor
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 7"):
-        tpipe.extract_from_points(pts, ExtractParams(cluster=cluster), device="cpu")
+    params = ExtractParams(cluster=cluster)
+    towers, stats, origin = tpipe.extract_from_points(pts, params, device="cpu")
+    j_towers, j_stats, j_origin = jpipe.extract_from_points(pts, params)
+    np.testing.assert_array_equal(origin, j_origin)
+    _assert_same_extraction(stats, j_stats)
+    assert "ladder" not in stats and "modular" in stats
+    assert len(towers) == len(j_towers) == 3
+    for t, jt in zip(towers, j_towers):
+        assert (t.label, t.num_points) == (jt.label, jt.num_points)
+        np.testing.assert_allclose(t.center, jt.center, atol=1.0)
