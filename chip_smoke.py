@@ -47,6 +47,17 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      density-floor retry), towers, floor and cells_overflow printed; wall
      and device-busy ms of each; (d) entry()'s batch and a 100,000-row
      per-chunk tile on the GPU vs the plain versions on the CPU;
+  9. the GIM workflow: (a) ``run-all`` through ``__main__.main`` with
+     ``--device cuda`` on the bench tile written as a LAS at
+     tm_forward(113.5, 28.2) (scale 0.01) and a synthetic GIM of its 24
+     towers, with every kernel's plain version made to raise: exit 0, "24
+     towers corrected", the 776-byte header kept, every BLHA rewritten within
+     10 m (haversine) of its generated tower, segscan launched by compress;
+     each stage's wall ms and compress's device-busy ms and idle share;
+     (b) voxel_downsample and voxel_downsample_chunked on a 131,072-row tile
+     on the GPU vs the CPU: identical rows, order, keys and counts,
+     centroids within the f32 summation bound; (c) ``reproject`` of (a)'s
+     tile: the device deltas within 2e-8 deg of the host f64 inverse;
   3. runs each kernel and its plain PyTorch version on the same device
      tensors at the shapes the paths give it, requires agreement (integer
      outputs, pop, counts and extremes identical; OBB sums within the f32
@@ -73,10 +84,11 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      modular path's calls of phase 8 (cluster_converge on dbscan's
      cell-sorted rows, timed also on the same rows in input order, and on
      the grid table; segscan and compactrows at grid_dbscan's calls,
-     segscan also with the cut rows as one segment for comparison).
+     segscan also with the cut rows as one segment for comparison), and
+     segscan at compress's call of phase 9 (a) (f32 [N, 4], reverse).
 
 Launch counts are reset just before each path's run (1, 4, 5, each mode of
-7, 8 (a)-(c)) and read just after.  Prints the card's name and power limit, one JSON line of
+7, 8 (a)-(c), 9 (a)) and read just after.  Prints the card's name and power limit, one JSON line of
 per-kernel results, and as its last line {"ok": true, "device": {...}}.
 Any failure raises: the exit code is non-zero and the last line is not
 printed.  It imports nothing of JAX or of the JAX package.
@@ -479,6 +491,238 @@ def modular_phase(dev, pts, centers, reset_counts, read_counts, profile=None,
     return results, launches, calls
 
 
+@contextlib.contextmanager
+def stage_walls(module, names, dev, walls, counter):
+    """Time every call of module.<name> for the given names (wall ms, the
+    device drained before and after) into walls[name], and the rise of the
+    launch counter counter = (module, attr) in walls[name + "_launches"].
+    The calls go through."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def timed_call(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize(dev)
+            before = getattr(*counter)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            walls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            walls.setdefault(f"{name}_launches", []).append(getattr(*counter) - before)
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, timed_call(name, fn))
+    try:
+        yield walls
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def voxel_parity(label, xyz, mask, voxel_size, chunk_size, dev):
+    """voxel_downsample (chunk_size None) or voxel_downsample_chunked on dev
+    and through the plain segmented scan on the CPU: identical output rows,
+    sort order, voxel keys and per-voxel counts, and centroids within the
+    f32 summation bound (a voxel's c rows added in another order differ by
+    at most c 2**-23 sum|x|, each row at most |centroid| + voxel_size, plus
+    one rounding of the division on each side).  Returns the worst
+    centroid difference (m)."""
+    from pointcloudhookup_tpu_torch.ops import voxel
+
+    def run(device):
+        x = torch.from_numpy(xyz).to(device)
+        m = torch.from_numpy(mask).to(device)
+        masked = torch.where(m[:, None], x, 3.0e38)
+        if chunk_size is None:
+            out = voxel.voxel_downsample(x, m, voxel_size)
+            mn, chunk = masked.amin(dim=0), None
+        else:
+            out = voxel.voxel_downsample_chunked(x, m, voxel_size, chunk_size=chunk_size)
+            mn = masked.view(-1, chunk_size, 3).amin(dim=1).repeat_interleave(chunk_size, 0)
+            chunk = torch.arange(len(mask), device=device) // chunk_size
+        order, keys = voxel.voxel_order(x, m, mn, voxel_size, chunk)
+        return [v.cpu().numpy() for v in (*out, order, *keys)]
+
+    got, ref = run(dev), run("cpu")
+    for name, g, r in zip(("mask", "order") + ("chunk",) * (chunk_size is not None)
+                          + ("kx", "ky", "kz"), [got[1], *got[2:]], [ref[1], *ref[2:]]):
+        if not np.array_equal(g, r):
+            raise AssertionError(f"{label}: {dev} and CPU differ in {name}")
+    keys = ref[3:]
+    start = np.arange(len(mask)) == 0
+    for k in keys:
+        start[1:] |= k[1:] != k[:-1]
+    seg = np.cumsum(start) - 1
+    pos = np.flatnonzero(ref[1])
+    counts = np.bincount(seg[mask[ref[2]]], minlength=int(seg[-1]) + 1)[seg[pos]]
+    if not start[pos].all() or counts.sum() != int(mask.sum()):
+        raise AssertionError(f"{label}: output rows are not the voxels' first rows")
+    cg, cr = got[0][pos].astype(np.float64), ref[0][pos].astype(np.float64)
+    bound = (counts[:, None] * 2.0**-23 + 2.0**-22) * (np.abs(cr) + voxel_size)
+    diff = np.abs(cg - cr)
+    if (diff > bound).any():
+        raise AssertionError(f"{label}: a centroid beyond the f32 summation bound")
+    err = float(diff.max()) if diff.size else 0.0
+    print(f"(b) {label}: {dev} == CPU in mask, order, keys and counts ({len(pos)} voxels of "
+          f"{int(mask.sum())} rows, up to {int(counts.max())} rows a voxel); centroids within "
+          f"{err} m (bound held)")
+    return err
+
+
+def gim_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, profile):
+    """Phase 9: the GIM workflow on the card.
+
+      (a) ``python -m pointcloudhookup_tpu_torch run-all`` through
+          ``__main__.main`` with ``--device cuda`` and every kernel's plain
+          version made to raise: the bench tile as a LAS at tm_forward(113.5,
+          28.2) (z + 80 m, scale 0.01), a synthetic GIM of its 24 towers
+          (h = z - 25); exit 0, "24 towers corrected", the 776-byte header
+          kept, 24 re-parsed towers, every BLHA changed and each within 10 m
+          (haversine) of its generated tower; segscan launched by compress;
+          each stage's wall ms, and compress's device-busy ms and idle share;
+      (b) voxel_downsample and voxel_downsample_chunked (chunk 32,768) on a
+          131,072-row tile on the card and on the CPU (voxel_parity);
+      (c) ``reproject`` of (a)'s LAS through ``__main__.main``: the f32
+          deltas on the card within 2e-8 deg of the host f64 inverse, the
+          written LAS within that plus half its 1e-7 deg scale.
+
+    Returns (results, launches of (a), compress's segscan call args)."""
+    import io
+
+    from pointcloudhookup_tpu_torch.__main__ import main as cli
+    from pointcloudhookup_tpu_torch.io.las import make_las, read_las, write_las
+    from pointcloudhookup_tpu_torch.io.synthetic import build_synthetic_gim, synthetic_corridor
+    from pointcloudhookup_tpu_torch.models import pipeline
+    from pointcloudhookup_tpu_torch.ops.geo import (
+        haversine_m, local_cgcs2000_to_wgs84, tm_forward, tm_inverse,
+    )
+    from pointcloudhookup_tpu_torch.ops.kernels import segscan
+
+    results = {}
+    e0, n0 = (float(v) for v in tm_forward(113.5, 28.2))
+    shift = np.array([e0, n0, 80.0])
+    world, towers_w = pts + shift, centers + shift
+    glon, glat = tm_inverse(towers_w[:, 0], towers_w[:, 1])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gim_") as tmp:
+        t0 = time.perf_counter()
+        las_path = os.path.join(tmp, "tile.las")
+        write_las(make_las(world, scales=[0.01, 0.01, 0.01]), las_path)
+        gts = [dict(id=f"P{i}", lat=float(glat[i]), lng=float(glon[i]),
+                    h=float(towers_w[i, 2]) - 25.0, r=5.0) for i in range(len(towers_w))]
+        gim_path = os.path.join(tmp, "model.gim")
+        build_synthetic_gim(gim_path, gts, workdir=os.path.join(tmp, "tree"))
+        print(f"(a) tile as LAS at scale 0.01 and a {len(gts)}-tower GIM written in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # ---- (a) run-all on the card, no plain version allowed
+        out_gim = os.path.join(tmp, "corrected.gim")
+        argv = ["run-all", las_path, gim_path, out_gim, "--device", str(dev),
+                "--output-folder", os.path.join(tmp, "og"), "--csv", os.path.join(tmp, "r.csv")]
+        walls, scans, buf = {}, [], io.StringIO()
+        stages = ("compress", "extract", "import_gim", "correct", "save_gim")
+        with no_plain_versions(kernel_modules), \
+                stage_walls(pipeline, stages, dev, walls, (segscan, "launches")), \
+                recording(segscan, "segmented_scan", scans), contextlib.redirect_stdout(buf):
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                cli(argv)
+                code = None
+            except SystemExit as e:
+                code = e.code
+            torch.cuda.synchronize(dev)
+            total_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts(EXACT_PATH, "(a) run-all")
+        out = buf.getvalue()
+        for line in out.splitlines():
+            print(f"  run-all | {line}")
+        stage_ms = {name: walls[name][0] for name in stages}
+        print(f"(a) run-all: exit {code}, wall {total_ms:.1f} ms; stages (wall ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
+              + f"; segscan launches in compress {walls['compress_launches'][0]}")
+        if code != 0 or f"{len(gts)} towers corrected" not in out:
+            raise AssertionError(f"(a) run-all: exit {code}, not '{len(gts)} towers corrected'")
+        if walls["compress_launches"][0] < 1:
+            raise AssertionError("(a) compress did not launch segscan")
+        compress_scan = next(a for a, _ in scans if a[0].dim() == 2 and a[0].shape[1] == 4)
+        with open(gim_path, "rb") as f, open(out_gim, "rb") as g:
+            if g.read(776) != f.read(776):
+                raise AssertionError("(a) the saved GIM lost the original 776-byte header")
+        before, _, _ = pipeline.import_gim(gim_path, os.path.join(tmp, "reparse_a"))
+        after, _, _ = pipeline.import_gim(out_gim, os.path.join(tmp, "reparse_b"))
+        b = {r.name: (r.lat, r.lng, r.h) for r in before}
+        a = {r.name: (r.lat, r.lng, r.h) for r in after}
+        changed = sum(a[k] != b[k] for k in a)
+        dist = np.array([float(haversine_m(a[f"P{i}"][0], a[f"P{i}"][1], glat[i], glon[i]))
+                         for i in range(len(gts))]) if set(a) == set(b) else np.array([np.inf])
+        print(f"(a) re-parsed {len(after)} towers, {changed} BLHA lines changed; corrected "
+              f"positions from the generated towers (haversine): worst {dist.max():.3f} m, "
+              f"median {np.median(dist):.3f} m")
+        if len(after) != len(gts) or changed != len(gts) or dist.max() > 10.0:
+            raise AssertionError(f"(a) {len(after)} towers, {changed} changed, worst "
+                                 f"{dist.max():.2f} m")
+        prof = profile(lambda: pipeline.compress(las_path, os.path.join(tmp, "p.las"),
+                                                 device=dev), top=8)
+        print(f"(a) compress, one profiled call: wall {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_ms']} ms, idle share {prof['idle_share']}; device ms by kernel: "
+              + ", ".join(f"{k[:60]} {v:.4f}" for k, v in prof["top"]))
+        results["a"] = dict(points=len(world), exit=code, wall_ms=total_ms, stage_ms=stage_ms,
+                            compress_segscan_launches=walls["compress_launches"][0],
+                            towers=len(after), changed=changed, worst_m=float(dist.max()),
+                            compress_profile=dict(wall_ms=prof["wall_ms"],
+                                                  device_ms=prof["device_ms"],
+                                                  idle_share=prof["idle_share"]))
+
+        # ---- (c) reproject (a)'s tile: the CLI, then its device deltas
+        deg_path = os.path.join(tmp, "deg.las")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli(["reproject", las_path, deg_path, "--device", str(dev)])
+        ms_c = (time.perf_counter() - t0) * 1e3
+        src = read_las(las_path).xyz()
+        t0 = time.perf_counter()
+        lon, lat = tm_inverse(src[:, 0], src[:, 1])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        e_0, n_0 = float(src[:, 0].mean()), float(src[:, 1].mean())
+        lt = local_cgcs2000_to_wgs84(e_0, n_0)
+        d_err = 0.0
+        for s in range(0, len(src), 1 << 20):
+            sl = slice(s, s + (1 << 20))
+            dlon, dlat = lt.eval_delta(
+                torch.from_numpy((src[sl, 0] - e_0).astype(np.float32)).to(dev),
+                torch.from_numpy((src[sl, 1] - n_0).astype(np.float32)).to(dev))
+            d_err = max(d_err,
+                        float(np.abs(lt.u0 + dlon.cpu().numpy().astype(np.float64) - lon[sl]).max()),
+                        float(np.abs(lt.v0 + dlat.cpu().numpy().astype(np.float64) - lat[sl]).max()))
+        deg = read_las(deg_path).xyz()
+        las_err = float(max(np.abs(deg[:, 0] - lon).max(), np.abs(deg[:, 1] - lat).max()))
+        print(f"(c) reproject of {len(src)} points: wall {ms_c:.1f} ms (host f64 inverse "
+              f"{host_ms:.1f} ms); device deltas within {d_err:.3g} deg of the f64 inverse "
+              f"(bound 2e-8), the written LAS within {las_err:.3g} deg (bound 7e-8)")
+        if d_err > 2e-8 or las_err > 5e-8 + 2e-8:
+            raise AssertionError(f"(c) reproject: {d_err} / {las_err} deg")
+        results["c"] = dict(points=len(src), wall_ms=ms_c, host_f64_ms=host_ms,
+                            max_err_deg=d_err, las_err_deg=las_err)
+
+    # ---- (b) compress on the card vs the CPU, 131,072 rows, both variants
+    n_b = 131_072
+    xs = np.linspace(-400, 400, 6)
+    pts_b, _ = synthetic_corridor(
+        np.random.default_rng(9), n_ground=int(n_b * 0.8), n_veg=int(n_b * 0.12),
+        towers=tuple(zip(xs, 30.0 * np.sin(xs / 200.0))),
+        pts_per_tower=(n_b - int(n_b * 0.92)) // 6, extent=450.0,
+    )
+    xyz_b, mask_b = padded(pts_b[:n_b], n_b)
+    results["b"] = {}
+    for vs in (0.1, 0.5):
+        for chunk in (None, 32_768):
+            label = (f"voxel {vs}, " + ("global" if chunk is None else f"chunks of {chunk}")
+                     + f", {n_b} rows")
+            results["b"][label] = voxel_parity(label, xyz_b, mask_b, vs, chunk, dev)
+    return results, launches, compress_scan
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -764,6 +1008,11 @@ def main() -> int:
     modular, modular_launches, modular_calls = modular_phase(
         dev, pts, centers, reset_counts, read_counts, profile=profile_iteration)
     launches.update(modular_launches)
+
+    # ---- 9. the GIM workflow: run-all, compress GPU == CPU, reproject
+    kernel_modules = sorted({mod for mod, _ in counters.values()}, key=lambda m: m.__name__)
+    gim, launches["gim_run_all"], compress_scan = gim_phase(
+        dev, pts, centers, reset_counts, read_counts, kernel_modules, profile_iteration)
 
     # ---- 3. each kernel vs its plain version at the paths' shapes.
     # Exact path: inputs as extract_from_points pads them; capacities as
@@ -1100,6 +1349,13 @@ def main() -> int:
          scan4, lambda: segscan.segmented_scan_plain(vals4, flags4, "add", True),
          cmp_sums(vals4, flags4, True, scan4), nbytes=vals4.shape[0] * (16 + 1 + 16),
          plain_reps=1)
+    # compress's call (phase 9 (a)): the voxel sums of four float32 columns
+    vals_c, flags_c, _, _ = compress_scan
+    scan_c = lambda: segscan.segmented_scan(vals_c, flags_c, "add", True)  # noqa: E731
+    case("segscan", f"compress (9a): f32 add reverse [{vals_c.shape[0]}, {vals_c.shape[1]}]",
+         scan_c, lambda: segscan.segmented_scan_plain(vals_c, flags_c, "add", True),
+         cmp_sums(vals_c, flags_c, True, scan_c), nbytes=vals_c.shape[0] * (16 + 1 + 16),
+         plain_reps=1)
     # segscan and compact_indices: one kernel launch a call, besides a memset
     for name in ("segscan", "compact_indices"):
         for c in results[name]:
@@ -1278,7 +1534,7 @@ def main() -> int:
         resolver_fast_ms=resolver_ms, resolver_info=info,
         bench_precut_div=precut_div, bench=bench, bench_profile=profile,
         sort_modes=sort_modes, mergesort_parts=mergesort_parts, modular=modular,
-        cluster_converge_row_order=order_ms,
+        cluster_converge_row_order=order_ms, gim_workflow=gim,
     )))
     print(json.dumps(dict(kernels=entries)))
     print(json.dumps(dict(

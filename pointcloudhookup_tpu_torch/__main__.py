@@ -1,12 +1,80 @@
-"""Command-line entry point: ``python -m pointcloudhookup_tpu_torch extract``.
+"""Command-line entry point: ``python -m pointcloudhookup_tpu_torch <command>``.
 
-The ``extract`` subcommand takes the JAX package's arguments
-(``pointcloudhookup_tpu/cli.py``) plus ``--device``.
+The reference's GIM workflow as headless subcommands (import GIM, import
+point cloud, compress, extract, match, correct, save) and ``run-all``,
+which chains them: compress -> extract -> import GIM -> correct -> save.
+Each takes the JAX package's arguments and defaults
+(``pointcloudhookup_tpu/cli.py``) plus ``--device``; ``correct`` has no
+``--icp`` (the ICP refinement is not ported).  A missing file or a bad
+value exits with code 2.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import sys
+
+
+def cmd_import_pc(args):
+    from pointcloudhookup_tpu_torch.io.las import read_las
+
+    las = read_las(args.las)
+    xyz = las.xyz()
+    info = dict(
+        points=len(las),
+        point_format=las.point_format,
+        version=list(las.version),
+        scales=las.scales.tolist(),
+        offsets=las.offsets.tolist(),
+        min=xyz.min(axis=0).tolist() if len(las) else None,
+        max=xyz.max(axis=0).tolist() if len(las) else None,
+    )
+    print(json.dumps(info, indent=2))
+
+
+_GIM_TABLE_HEADERS = ("系统层级", "系统类型", "经度", "纬度", "高度", "北方向偏角",
+                      "杆塔编号", "CBM路径")
+
+
+def cmd_import_gim(args):
+    from pointcloudhookup_tpu_torch.models.pipeline import import_gim, write_table
+
+    records, _folder, _header = import_gim(args.gim, args.output_folder, log_callback=print)
+    for r in records:
+        props = r.properties or {}
+        print(
+            f"{props.get('杆塔编号', r.name)}: lat={r.lat:.6f} lng={r.lng:.6f} "
+            f"h={r.h:.2f} r={r.r:.1f} ({r.cbm_path})"
+        )
+    if args.table:
+        rows = [
+            (r.name, r.type, r.lng, r.lat, r.h, r.r,
+             (r.properties or {}).get("杆塔编号", ""), r.cbm_path)
+            for r in records
+        ]
+        # xlsx where pandas and an Excel engine are installed, else csv
+        # beside it, as the JAX package falls back
+        path = args.table
+        if not path.endswith(".xlsx"):
+            path = path.rsplit(".", 1)[0] + ".csv"
+        write_table(_GIM_TABLE_HEADERS, rows, path)
+        print(f"table -> {args.table}")
+
+
+def cmd_compress(args):
+    from pointcloudhookup_tpu_torch.models.pipeline import compress
+
+    n = compress(
+        args.input,
+        args.output,
+        voxel_size=args.voxel_size,
+        chunk_size=args.chunk_size,
+        per_chunk=args.per_chunk,
+        log_callback=print,
+        device=args.device,
+    )
+    print(f"{n} points written")
 
 
 def cmd_extract(args):
@@ -54,40 +122,158 @@ def cmd_extract(args):
         )
 
 
+def cmd_match(args, corrected: bool = False):
+    from pointcloudhookup_tpu_torch.models import pipeline
+
+    records, folder, _ = pipeline.import_gim(args.gim, args.output_folder)
+    towers = pipeline.extract(args.las, log_callback=print, eps=args.eps,
+                              min_points=args.min_points, device=args.device)
+    fn = pipeline.correct if corrected else pipeline.match
+    res = fn(records, towers, region_n_value=args.region_n_value)
+    print(f"{len(res.pairs)} pairs matched")
+    for gi, pi in res.pairs:
+        print(f"  GIM[{gi}] {res.gim_rows[gi][0]} <-> PC[{pi}] {res.pc_rows[pi][0]}")
+    if args.csv:
+        res.to_csv(args.csv)
+        print(f"tables -> {args.csv}")
+    if args.html:
+        res.to_html(args.html)
+        print(f"review page -> {args.html}")
+    if corrected and args.save:
+        rows = pipeline.corrected_rows_from_result(res, records)
+        ok = pipeline.save_gim(folder, rows, args.save, original_gim_path=args.gim,
+                               log_callback=print)
+        print("saved" if ok else "save FAILED")
+
+
+def cmd_reproject(args):
+    from pointcloudhookup_tpu_torch.models.pipeline import reproject_las
+
+    n = reproject_las(args.input, args.output, log_callback=print, device=args.device)
+    print(f"{n} points reprojected")
+
+
+def cmd_run_all(args):
+    """compress -> extract -> import GIM -> correct -> save; exits 0 only if
+    the save succeeded."""
+    from pointcloudhookup_tpu_torch.models import pipeline
+
+    ds = args.las.rsplit(".", 1)[0] + "_ds.las"
+    pipeline.compress(args.las, ds, voxel_size=args.voxel_size, log_callback=print,
+                      device=args.device)
+    towers = pipeline.extract(ds, log_callback=print, eps=args.eps,
+                              min_points=args.min_points, device=args.device)
+    records, folder, _ = pipeline.import_gim(args.gim, args.output_folder)
+    res = pipeline.correct(records, towers, region_n_value=args.region_n_value)
+    print(f"{len(res.pairs)} towers corrected")
+    rows = pipeline.corrected_rows_from_result(res, records)
+    ok = pipeline.save_gim(folder, rows, args.out_gim, original_gim_path=args.gim,
+                           log_callback=print)
+    if args.csv:
+        res.to_csv(args.csv)
+    sys.exit(0 if ok else 1)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="pointcloudhookup_tpu_torch",
-        description="Power-line tower extraction on PyTorch + CUDA.",
+        description="Power-line tower extraction and GIM correction on PyTorch + CUDA.",
     )
     sub = p.add_subparsers(dest="command", required=True)
+
+    def add_device(sp):
+        sp.add_argument(
+            "--device", default="cuda",
+            help="torch device to run on, e.g. cuda, cuda:1 or cpu (commands that "
+                 "do only host work accept it and run on the host)",
+        )
+
+    sp = sub.add_parser("import-pc", help="inspect a LAS file")
+    sp.add_argument("las")
+    add_device(sp)
+    sp.set_defaults(fn=cmd_import_pc)
+
+    sp = sub.add_parser("import-gim", help="unpack + parse a GIM file")
+    sp.add_argument("gim")
+    sp.add_argument("--output-folder", default="output")
+    sp.add_argument("--table", help="write tower_data table (xlsx/csv)")
+    add_device(sp)
+    sp.set_defaults(fn=cmd_import_gim)
+
+    sp = sub.add_parser("compress", help="voxel-grid downsample a LAS file")
+    sp.add_argument("input")
+    sp.add_argument("output")
+    sp.add_argument("--voxel-size", type=float, default=0.1)
+    sp.add_argument("--chunk-size", type=int, default=500_000)
+    sp.add_argument("--per-chunk", action="store_true",
+                    help="reference-parity per-chunk voxel dedup")
+    add_device(sp)
+    sp.set_defaults(fn=cmd_compress)
+
+    def add_extract_args(sp):
+        sp.add_argument("--eps", type=float, default=8.0)
+        sp.add_argument("--min-points", type=int, default=80)
+        sp.add_argument("--aspect-ratio-threshold", type=float, default=0.8)
+        sp.add_argument("--min-height", type=float, default=15.0)
+        sp.add_argument("--max-width", type=float, default=50.0)
+        sp.add_argument("--min-width", type=float, default=8.0)
+        sp.add_argument("--duplicate-threshold", type=float, default=30.0)
+        sp.add_argument(
+            "--cluster-method", default="auto",
+            choices=["auto", "exact", "grid", "adaptive"],
+            help="clustering backend; 'adaptive' derives eps from the data "
+                 "(the reference's HDBSCAN-path analogue)",
+        )
+        add_device(sp)
+
     sp = sub.add_parser("extract", help="extract towers from a LAS tile")
     sp.add_argument("las")
-    sp.add_argument("--eps", type=float, default=8.0)
-    sp.add_argument("--min-points", type=int, default=80)
-    sp.add_argument("--aspect-ratio-threshold", type=float, default=0.8)
-    sp.add_argument("--min-height", type=float, default=15.0)
-    sp.add_argument("--max-width", type=float, default=50.0)
-    sp.add_argument("--min-width", type=float, default=8.0)
-    sp.add_argument("--duplicate-threshold", type=float, default=30.0)
-    sp.add_argument(
-        "--cluster-method", default="auto",
-        choices=["auto", "exact", "grid", "adaptive"],
-        help="clustering backend; 'adaptive' derives eps from the data "
-             "(the reference's HDBSCAN-path analogue)",
-    )
+    add_extract_args(sp)
     sp.add_argument("--output-dir", help="save per-tower LAS files here")
     sp.add_argument("--excel", help="towers_info table path")
     sp.add_argument(
         "--per-chunk", action="store_true",
         help="reference-parity per-50k-chunk clustering (labels never merge across chunks)",
     )
-    sp.add_argument(
-        "--device", default="cuda",
-        help="torch device to run on, e.g. cuda, cuda:1 or cpu",
-    )
     sp.set_defaults(fn=cmd_extract)
+
+    for name, corrected in (("match", False), ("correct", True)):
+        sp = sub.add_parser(name, help=f"{name} GIM towers against a LAS tile")
+        sp.add_argument("gim")
+        sp.add_argument("las")
+        add_extract_args(sp)
+        sp.add_argument("--region-n-value", type=float, default=25.0)
+        sp.add_argument("--output-folder", default="output")
+        sp.add_argument("--csv", help="write the side-by-side tables")
+        sp.add_argument("--html", help="write the highlighted review page")
+        if corrected:
+            sp.add_argument("--save", help="write the corrected .gim here")
+        sp.set_defaults(fn=lambda a, c=corrected: cmd_match(a, c))
+
+    sp = sub.add_parser("reproject", help="EPSG:4547 -> WGS84 whole-LAS transform")
+    sp.add_argument("input")
+    sp.add_argument("output")
+    add_device(sp)
+    sp.set_defaults(fn=cmd_reproject)
+
+    sp = sub.add_parser("run-all", help="full workflow: compress -> extract -> correct -> save")
+    sp.add_argument("las")
+    sp.add_argument("gim")
+    sp.add_argument("out_gim")
+    add_extract_args(sp)
+    sp.add_argument("--voxel-size", type=float, default=0.1)
+    sp.add_argument("--region-n-value", type=float, default=25.0)
+    sp.add_argument("--output-folder", default="output")
+    sp.add_argument("--csv")
+    sp.set_defaults(fn=cmd_run_all)
+
     args = p.parse_args(argv)
-    args.fn(args)
+    try:
+        args.fn(args)
+    except FileNotFoundError as e:
+        p.exit(2, f"error: file not found: {e.filename or e}\n")
+    except ValueError as e:
+        p.exit(2, f"error: {e}\n")
 
 
 if __name__ == "__main__":

@@ -1,16 +1,20 @@
-"""Synthetic workload generator.
+"""Synthetic workload generators.
 
-Copy of ``synthetic_corridor`` from ``pointcloudhookup_tpu/io/synthetic.py``
-(the GIM tree builder waits for the GIM port): corridor-like point clouds
-of ground, vegetation, lattice towers and catenary lines.  The same
-generator state gives the same points in both packages.
+Copy of ``pointcloudhookup_tpu/io/synthetic.py``: corridor-like point
+clouds of ground, vegetation, lattice towers and catenary lines
+(``synthetic_corridor``), and GIM model trees (``build_gim_tree``,
+``build_synthetic_gim``).  The same generator state gives the same points,
+and the same towers the same bytes, in both packages.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import os
+from typing import Optional, Sequence
 
 import numpy as np
+
+from pointcloudhookup_tpu_torch.io.gim import write_gim
 
 
 def synthetic_corridor(
@@ -62,3 +66,84 @@ def synthetic_corridor(
     pts = np.vstack(parts)
     pts += np.asarray(origin, np.float64)
     return pts, np.array(centers) + np.asarray(origin, np.float64)
+
+
+DEFAULT_FAM_PROPS = {
+    "杆塔编号": "P{i}",
+    "呼高": "24",
+    "杆塔高": "42.0",
+    "Kv值": "220",
+    "转角": "0.0",
+}
+
+
+def build_gim_tree(
+    folder: str,
+    towers: Sequence[dict],
+    subsystems: int = 1,
+) -> None:
+    """Write a synthetic GIM model tree (Cbm/project.cbm + per-tower
+    .cbm/.fam files) shaped like the reference's parse expectations
+    (the reference's ui/parsetower.py:28-114).
+
+    Each tower dict: {"id": str, "lat": float, "lng": float, "h": float,
+    "r": float, "props": dict | None}.
+    """
+    cbm = os.path.join(folder, "Cbm")
+    os.makedirs(cbm, exist_ok=True)
+    groups = [[] for _ in range(subsystems)]
+    for i, t in enumerate(towers):
+        groups[i % subsystems].append((i, t))
+
+    sub_names = []
+    for s, group in enumerate(groups):
+        sub_name = f"F{s + 1}.cbm"
+        sub_names.append(sub_name)
+        lines = [f"ENTITYNAME=线路{s + 1}", f"GROUPS.NUM={len(group)}"]
+        for i, _t in group:
+            lines.append(f"GROUP=T{i}.cbm")
+        with open(os.path.join(cbm, sub_name), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+        for i, t in group:
+            props = t.get("props") or {
+                **{k: v for k, v in DEFAULT_FAM_PROPS.items() if k != "杆塔编号"},
+                "杆塔编号": str(t.get("id", f"P{i}")),
+            }
+            fam_name = f"T{i}.fam"
+            with open(os.path.join(cbm, f"T{i}.cbm"), "w", encoding="utf-8") as f:
+                f.write(
+                    "\n".join(
+                        [
+                            f"ENTITYNAME={t.get('id', f'塔{i}')}",
+                            "GROUPTYPE=TOWER",
+                            f"BLHA={t['lat']:.6f},{t['lng']:.6f},{t['h']:.3f},{t['r']:.3f}",
+                            f"BASEFAMILY={fam_name}",
+                        ]
+                    )
+                    + "\n"
+                )
+            with open(os.path.join(cbm, fam_name), "w", encoding="utf-8") as f:
+                for k, v in props.items():
+                    f.write(f"_={k}={v}\n")
+
+    with open(os.path.join(cbm, "project.cbm"), "w", encoding="utf-8") as f:
+        f.write("ENTITYNAME=工程\n")
+        for name in sub_names:
+            f.write(f"SUBSYSTEM={name}\n")
+
+
+def build_synthetic_gim(
+    gim_path: str,
+    towers: Sequence[dict],
+    workdir: Optional[str] = None,
+    header: Optional[bytes] = None,
+) -> str:
+    """Build a complete synthetic .gim file; returns the tree folder."""
+    import tempfile
+
+    folder = workdir or tempfile.mkdtemp(prefix="gim_tree_")
+    build_gim_tree(folder, towers)
+    if header is None:
+        header = b"GIMHDR\x01" + bytes(range(256)) * 3  # arbitrary 776-ish content
+    write_gim(folder, gim_path, header=header, level=1)
+    return folder

@@ -1,0 +1,265 @@
+"""The port's CLI and GIM workflow on the CPU (``--device cpu``), mirroring
+``tests/test_cli.py`` on the same 3-tower corridor, and held against the
+JAX package where the two must agree to the byte: the compressed LAS
+(its centroids are bit-equal on the CPU, tests/test_torch_voxel.py), the
+match tables' CSV (``MatchResult.to_csv``, pandas in the JAX package, the
+csv module here) and the saved GIM for the same corrected rows."""
+
+import json
+import os
+import shutil
+
+import numpy as np
+import pytest
+
+from pointcloudhookup_tpu.cli import main as jmain
+from pointcloudhookup_tpu.io.las import read_las as jread_las
+from pointcloudhookup_tpu.models import pipeline as jpipe
+from pointcloudhookup_tpu.ops.geo import tm_inverse as jtm_inverse
+from pointcloudhookup_tpu_torch.__main__ import main
+from pointcloudhookup_tpu_torch.io.las import make_las, read_las, write_las
+from pointcloudhookup_tpu_torch.io.synthetic import build_synthetic_gim, synthetic_corridor
+from pointcloudhookup_tpu_torch.models import pipeline
+from pointcloudhookup_tpu_torch.ops.geo import tm_forward, tm_inverse
+
+CPU = ["--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def workspace(tmp_path_factory):
+    """tests/test_cli.py's workspace: the corridor at tm_forward(113.5,
+    28.2) as a LAS at 0.01 m scale, and a GIM of its three towers (h = z -
+    25)."""
+    tmp = tmp_path_factory.mktemp("torch_cli")
+    rng = np.random.default_rng(3)
+    e0, n0 = (float(v) for v in tm_forward(113.5, 28.2))
+    pts, centers = synthetic_corridor(
+        rng, n_ground=2500, n_veg=400, pts_per_tower=350, extent=200.0,
+        origin=(e0, n0, 80.0),
+    )
+    las = str(tmp / "c.las")
+    write_las(make_las(pts, scales=[0.01, 0.01, 0.01]), las)
+    gts = []
+    for i, c in enumerate(centers):
+        lon, lat = tm_inverse(c[0], c[1])
+        gts.append(dict(id=f"P{i}", lat=float(lat), lng=float(lon), h=float(c[2]) - 25.0, r=5.0))
+    gim = str(tmp / "c.gim")
+    build_synthetic_gim(gim, gts, workdir=str(tmp / "tree"))
+    return tmp, las, gim, centers
+
+
+def test_cli_import_pc(workspace, capsys):
+    tmp, las, gim, centers = workspace
+    main(["import-pc", las] + CPU)
+    info = json.loads(capsys.readouterr().out)
+    assert info["points"] > 3000 and info["point_format"] == 0
+    jmain(["import-pc", las])
+    assert info == json.loads(capsys.readouterr().out)
+
+
+def test_cli_import_gim(workspace, capsys, tmp_path):
+    tmp, las, gim, centers = workspace
+    main(["import-gim", gim, "--output-folder", str(tmp_path / "o"),
+          "--table", str(tmp_path / "t.csv")] + CPU)
+    out = capsys.readouterr().out
+    assert "P0" in out and "parsed 3 towers" in out
+    table = (tmp_path / "t.csv").read_text(encoding="utf-8").splitlines()
+    assert table[0].split(",")[:3] == ["系统层级", "系统类型", "经度"]
+    assert len(table) == 4
+    jmain(["import-gim", gim, "--output-folder", str(tmp_path / "o"),
+           "--table", str(tmp_path / "j.csv")])
+    ref = capsys.readouterr().out
+    assert out.splitlines()[1:-1] == ref.splitlines()[1:-1]  # the towers, in order
+    assert (tmp_path / "t.csv").read_bytes() == (tmp_path / "j.csv").read_bytes()
+
+
+@pytest.mark.parametrize("per_chunk", [False, True], ids=["global", "per-chunk"])
+def test_cli_compress_matches_jax_bytes(workspace, capsys, tmp_path, per_chunk):
+    tmp, las, gim, centers = workspace
+    ds = str(tmp_path / "ds.las")
+    extra = ["--per-chunk", "--chunk-size", "1024"] if per_chunk else []
+    main(["compress", las, ds, "--voxel-size", "1.0"] + extra + CPU)
+    assert "points written" in capsys.readouterr().out
+    ref = str(tmp_path / "ref.las")
+    jpipe.compress(las, ref, voxel_size=1.0, per_chunk=per_chunk, chunk_size=1024)
+    with open(ds, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+    assert 1000 < len(read_las(ds)) < len(read_las(las))
+
+
+def test_cli_compress_and_extract(workspace, capsys, tmp_path):
+    tmp, las, gim, centers = workspace
+    ds = str(tmp_path / "ds.las")
+    main(["compress", las, ds, "--voxel-size", "0.1"] + CPU)
+    assert "points written" in capsys.readouterr().out
+    main(["extract", ds, "--eps", "5", "--min-points", "30"] + CPU)
+    out = capsys.readouterr().out
+    assert out.count("tower_") == len(centers)
+
+
+def test_cli_correct_save(workspace, capsys, tmp_path):
+    tmp, las, gim, centers = workspace
+    out_gim = str(tmp_path / "corrected.gim")
+    main(["correct", gim, las, "--eps", "5", "--min-points", "30",
+          "--output-folder", str(tmp_path / "og"),
+          "--save", out_gim, "--csv", str(tmp_path / "r.csv"),
+          "--html", str(tmp_path / "r.html")] + CPU)
+    out = capsys.readouterr().out
+    assert f"{len(centers)} pairs matched" in out
+    assert "saved" in out
+    assert (tmp_path / "r.html").exists()
+    assert os.path.getsize(out_gim) > 776
+    main(["match", gim, las, "--eps", "5", "--min-points", "30",
+          "--output-folder", str(tmp_path / "om")] + CPU)
+    assert f"{len(centers)} pairs matched" in capsys.readouterr().out
+
+
+def test_cli_missing_file_exit_code(workspace):
+    for argv in (["import-pc", "nonexistent.las"],
+                 ["compress", "nonexistent.las", "x.las"],
+                 ["import-gim", "nonexistent.gim"]):
+        with pytest.raises(SystemExit) as e:
+            main(argv + CPU)
+        assert e.value.code == 2
+
+
+def test_cli_run_all(workspace, capsys, tmp_path):
+    """compress -> extract -> import GIM -> correct -> save: the saved GIM
+    keeps the 776-byte header, re-parses, and every tower's BLHA line is
+    rewritten to a position within 0.001 deg of the original."""
+    tmp, las, gim, centers = workspace
+    out_gim = str(tmp_path / "all.gim")
+    with pytest.raises(SystemExit) as e:
+        main(["run-all", las, gim, out_gim, "--eps", "5", "--min-points", "30",
+              "--output-folder", str(tmp_path / "og"),
+              "--csv", str(tmp_path / "r.csv")] + CPU)
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert f"{len(centers)} towers corrected" in out
+    assert (tmp_path / "r.csv").exists()
+    with open(gim, "rb") as f:
+        orig_hdr = f.read(776)
+    with open(out_gim, "rb") as f:
+        new_hdr = f.read(776)
+    assert len(new_hdr) == 776 and new_hdr == orig_hdr
+    before, _, _ = pipeline.import_gim(gim, str(tmp_path / "reparse_a"))
+    after, _, _ = pipeline.import_gim(out_gim, str(tmp_path / "reparse_b"))
+    assert len(after) == len(centers)
+    b = {r.name: (r.lat, r.lng, r.h) for r in before}
+    a = {r.name: (r.lat, r.lng, r.h) for r in after}
+    assert set(a) == set(b)
+    assert sum(a[k] != b[k] for k in a) == len(centers)
+    for k in a:
+        assert abs(a[k][0] - b[k][0]) < 0.001 and abs(a[k][1] - b[k][1]) < 0.001
+
+
+def _results(n_gim, n_pc, pairs, corrected=False):
+    """The same MatchResult in both packages, built by their _build_result
+    from n_gim GIM records (every third without a tower id) and n_pc
+    converted towers."""
+    def records(mod):
+        from pointcloudhookup_tpu_torch.io.cbm import GimTowerRecord as T
+        from pointcloudhookup_tpu.io.cbm import GimTowerRecord as J
+
+        cls = T if mod is pipeline else J
+        return [cls(name=f"塔{i}", type="TOWER", lat=28.1 + 1e-3 * i, lng=113.2 + 2e-3 * i,
+                    h=50.0 + i, r=3.5 * i,
+                    properties=None if i % 3 == 2 else {"杆塔编号": f"P,{i}" if i == 1 else f"P{i}"})
+                for i in range(n_gim)]
+
+    def converted(mod):
+        return [mod.ConvertedTower(
+            id=f"PC-{i + 1}", converted_center=[113.2 + 2e-3 * i, 28.1 + 1e-3 * i, 40.0 + i],
+            height=30.0, north_angle=7.25 * i, original_center=[0.0, 0.0, 65.0 + i],
+            ellipsoid_height=65.0 + i, orthometric_height=40.0 + i, n_value=25.0,
+            height_conversion_applied=True) for i in range(n_pc)]
+
+    return (pipeline._build_result(records(pipeline), converted(pipeline), list(pairs), corrected),
+            jpipe._build_result(records(jpipe), converted(jpipe), list(pairs), corrected))
+
+
+@pytest.mark.parametrize("n_gim,n_pc,pairs", [
+    (3, 3, [(0, 0), (1, 1), (2, 2)]),  # same length, every row paired
+    (4, 2, [(0, 1), (2, 0)]),  # the right table padded, unpaired GIM rows
+    (2, 5, [(0, 3), (1, 3)]),  # the left table padded; one tower paired twice
+    (3, 4, [(0, 0), (1, 1), (2, 2)]),  # the left table padded, all its rows paired
+    (5, 2, [(0, 0), (1, 1), (2, 0), (3, 1), (4, 0)]),  # the right, all paired
+    (0, 3, []),  # no GIM rows
+    (2, 0, []),  # no point-cloud rows
+    (0, 0, []),
+])
+def test_match_csv_matches_pandas_bytes(tmp_path, n_gim, n_pc, pairs):
+    for corrected in (False, True):
+        got, ref = _results(n_gim, n_pc, pairs, corrected)
+        got.to_csv(str(tmp_path / "t.csv"))
+        ref.to_csv(str(tmp_path / "j.csv"))
+        assert (tmp_path / "t.csv").read_bytes() == (tmp_path / "j.csv").read_bytes()
+        got.to_html(str(tmp_path / "t.html"))
+        ref.to_html(str(tmp_path / "j.html"))
+        assert (tmp_path / "t.html").read_bytes() == (tmp_path / "j.html").read_bytes()
+
+
+def test_save_gim_matches_jax_bytes(workspace, tmp_path):
+    """The same corrected rows into two copies of the extracted tree: the
+    saved GIM files are identical, at the default level 9 and at level 1."""
+    tmp, las, gim, centers = workspace
+    recs, folder, _ = pipeline.import_gim(gim, str(tmp_path / "x"))
+    jrecs, jfolder, _ = jpipe.import_gim(gim, str(tmp_path / "y"))
+    assert [r.name for r in recs] == [r.name for r in jrecs]
+    pcs = [pipeline.ConvertedTower(
+        id=f"PC-{i}", converted_center=[r.lng + 1e-5, r.lat - 2e-5, r.h + 0.5], height=30.0,
+        north_angle=r.r, original_center=[0.0, 0.0, 0.0], ellipsoid_height=0.0,
+        orthometric_height=0.0, n_value=25.0, height_conversion_applied=True)
+        for i, r in enumerate(recs)]
+    res = pipeline._build_result(recs, pcs, [(i, i) for i in range(len(recs))], True)
+    for level in (9, 1):
+        shutil.rmtree(tmp_path / "x")
+        shutil.rmtree(tmp_path / "y")
+        recs, folder, _ = pipeline.import_gim(gim, str(tmp_path / "x"))
+        jrecs, jfolder, _ = jpipe.import_gim(gim, str(tmp_path / "y"))
+        assert pipeline.save_gim(folder, pipeline.corrected_rows_from_result(res, recs),
+                                 str(tmp_path / "t.gim"), original_gim_path=gim, level=level)
+        assert jpipe.save_gim(jfolder, jpipe.corrected_rows_from_result(res, jrecs),
+                              str(tmp_path / "j.gim"), original_gim_path=gim, level=level)
+        assert (tmp_path / "t.gim").read_bytes() == (tmp_path / "j.gim").read_bytes()
+    assert not pipeline.save_gim(folder, [], str(tmp_path / "t.gim" / "no"), gim)
+
+
+def test_match_and_correct_match_jax(workspace):
+    """match()/correct() on the same towers and records give the JAX
+    package's pairs and tables; correct(icp=True) is not ported and says
+    so."""
+    tmp, las, gim, centers = workspace
+    recs, _, _ = pipeline.import_gim(gim, str(tmp / "mc_t"))
+    jrecs, _, _ = jpipe.import_gim(gim, str(tmp / "mc_j"))
+    towers = pipeline.extract(las, eps=5.0, min_points=30, device="cpu")
+    for fn, jfn in ((pipeline.match, jpipe.match), (pipeline.correct, jpipe.correct)):
+        got, ref = fn(recs, towers), jfn(jrecs, towers)
+        assert got.pairs == ref.pairs and len(got.pairs) == len(centers)
+        assert (got.gim_rows, got.pc_rows) == (ref.gim_rows, ref.pc_rows)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        pipeline.correct(recs, towers, icp=True)
+
+
+def test_cli_reproject(workspace, capsys, tmp_path):
+    """Every point to lon/lat: the f32 deltas on the device path within
+    2e-8 deg of the host f64 inverse, then stored at the LAS's 1e-7 deg
+    scale (the JAX package's output agrees to one unit of that scale)."""
+    tmp, las, gim, centers = workspace
+    out = str(tmp_path / "deg.las")
+    main(["reproject", las, out] + CPU)
+    assert "points reprojected" in capsys.readouterr().out
+    src = read_las(las).xyz()
+    got = read_las(out)
+    lon, lat = tm_inverse(src[:, 0], src[:, 1])
+    xyz = got.xyz()
+    assert np.abs(xyz[:, 0] - lon).max() < 5e-8 + 2e-8
+    assert np.abs(xyz[:, 1] - lat).max() < 5e-8 + 2e-8
+    np.testing.assert_array_equal(xyz[:, 2], src[:, 2])
+    assert got.vlr_bytes == read_las(las).vlr_bytes
+    ref = str(tmp_path / "ref.las")
+    jpipe.reproject_las(las, ref)
+    rxyz = jread_las(ref).xyz()
+    assert np.abs(xyz - rxyz).max() <= 1.5e-7
+    jlon, _ = jtm_inverse(src[:, 0], src[:, 1], xp=np)
+    np.testing.assert_array_equal(lon, jlon)

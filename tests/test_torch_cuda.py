@@ -1233,3 +1233,89 @@ def test_extract_step_cuda_matches_cpu(cuda, method):
     assert int(ref["accepted"].sum()) == 3
     acc = ref["accepted"]
     np.testing.assert_allclose(n(got["center"])[n(acc)], n(ref["center"])[n(acc)], atol=1e-3)
+
+
+# ------------------------------------------------------------------
+# Voxel downsampling (compress) on the card
+
+
+def voxel_rows(seed=12, n=100_000, cap=131_072):
+    """A corridor tile (towers, vegetation, ground), centred and padded."""
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
+
+    pts, _ = synthetic_corridor(
+        np.random.default_rng(seed), n_ground=int(n * 0.8), n_veg=int(n * 0.12),
+        pts_per_tower=int(n * 0.08) // 3, extent=300.0,
+    )
+    xyz = np.zeros((cap, 3), np.float32)
+    xyz[: len(pts)] = (pts - pts.mean(axis=0)).astype(np.float32)
+    return xyz, np.arange(cap) < len(pts)
+
+
+def voxel_call(chunk_size):
+    from pointcloudhookup_tpu_torch.ops import voxel
+
+    if chunk_size is None:
+        return voxel.voxel_downsample
+    return lambda x, m, vs: voxel.voxel_downsample_chunked(x, m, vs, chunk_size=chunk_size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("voxel_size", [0.1, 0.5])
+@pytest.mark.parametrize("chunk_size", [None, 16_384], ids=["global", "chunked"])
+def test_voxel_downsample_cuda_matches_cpu(cuda, chunk_size, voxel_size):
+    """voxel_downsample(_chunked) on the card against the CPU run (the
+    plain segmented scan, which the CPU suite holds bit-equal to the JAX
+    package): the same sort order and voxel keys, the same output rows, and
+    centroids within the f32 summation bound (the kernel adds each voxel's
+    rows in another fixed order: a sum of c rows within c 2**-23 sum|x|,
+    then one rounding of the division on each side).  The card run makes
+    no host sync and one segscan launch."""
+    from pointcloudhookup_tpu_torch.ops import voxel
+
+    fn = voxel_call(chunk_size)
+    xyz, mask = voxel_rows()
+    ref_xyz, ref_mask = fn(t(xyz), t(mask), voxel_size)
+    x, m = t(xyz, cuda), t(mask, cuda)
+    fn(x, m, voxel_size)  # builds the library, warms the allocator
+    torch.cuda.synchronize()
+    before = segscan.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_xyz, got_mask = fn(x, m, voxel_size)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert segscan.launches == before + 1
+    assert torch.equal(got_mask.cpu(), ref_mask)
+    n_out = int(ref_mask.sum())
+    assert 0 < n_out < int(mask.sum())
+
+    # the order and keys, from the same sort on both devices
+    big = np.float32(3.0e38)
+    masked = np.where(mask[:, None], xyz, big)
+    if chunk_size is None:
+        mn = masked.min(axis=0)
+        chunk = None
+    else:
+        mn = np.repeat(masked.reshape(-1, chunk_size, 3).min(axis=1), chunk_size, axis=0)
+        chunk = torch.arange(len(mask), dtype=torch.int64) // chunk_size
+    o_ref, k_ref = voxel.voxel_order(t(xyz), t(mask), t(mn), voxel_size, chunk)
+    o_got, k_got = voxel.voxel_order(x, m, t(mn, cuda), voxel_size,
+                                     None if chunk is None else chunk.to(cuda))
+    assert torch.equal(o_got.cpu(), o_ref)
+    assert all(torch.equal(g.cpu(), r) for g, r in zip(k_got, k_ref))
+
+    # centroids: c rows of magnitude at most |centroid| + voxel_size each;
+    # c from the sorted keys (valid rows of each voxel)
+    pos = np.flatnonzero(n(ref_mask))
+    start = np.arange(len(mask)) == 0
+    for k in k_ref:
+        start[1:] |= n(k)[1:] != n(k)[:-1]
+    seg = np.cumsum(start) - 1
+    counts = np.bincount(seg[mask[n(o_ref)]], minlength=int(seg[-1]) + 1)[seg[pos]]
+    assert start[pos].all() and counts.min() >= 1 and counts.sum() == int(mask.sum())
+    ref_c = n(ref_xyz)[pos].astype(np.float64)
+    got_c = n(got_xyz)[pos].astype(np.float64)
+    bound = ((counts[:, None] * 2.0**-23 + 2.0**-22) * (np.abs(ref_c) + voxel_size))
+    assert (np.abs(got_c - ref_c) <= bound).all()
+    assert (n(got_xyz)[~n(ref_mask)] == 0).all()

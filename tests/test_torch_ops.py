@@ -226,6 +226,8 @@ def test_port_never_imports_jax():
         "import pointcloudhookup_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 20, names\n"
+        "new = {'ops.voxel', 'ops.geo', 'io.sevenzip', 'io.gim', 'io.cbm'}\n"
+        "assert {pkg.__name__ + '.' + m for m in new} <= set(names), names\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
