@@ -58,6 +58,19 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      on the GPU vs the CPU: identical rows, order, keys and counts,
      centroids within the f32 summation bound; (c) ``reproject`` of (a)'s
      tile: the device deltas within 2e-8 deg of the host f64 inverse;
+ 10. registration and tile streaming: (a) ``correct --icp --save`` through
+     ``__main__.main`` on 9 (a)'s files with no plain version allowed: 24
+     refined pairs inside their boxes, the card within 1 mm of the CPU, the
+     saved GIM reopens, no kernel in the ICP; (b) config 4's batched_icp
+     (50 x 2,048, 20 iterations): the planted motions recovered, the card
+     vs the CPU, ms a call, host syncs an iteration; (c) ``register``: 24
+     transforms, the ICP's peak memory within its bound; (d) stream_extract
+     over 50 LAS tiles of 1,048,576 points with config 5's parameters: 24
+     towers a tile, 1,200 after the cross-tile dedup, the native reader,
+     decode / staging / host-to-device ms a tile, device busy; the device
+     bytes a point of one fused and one modular 4M step against the
+     governor's constant; (e) the card vs the CPU on streamed chunks (both
+     wires, fast and modular) and on config 4's gim_scenario;
   3. runs each kernel and its plain PyTorch version on the same device
      tensors at the shapes the paths give it, requires agreement (integer
      outputs, pop, counts and extremes identical; OBB sums within the f32
@@ -88,7 +101,8 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      segscan at compress's call of phase 9 (a) (f32 [N, 4], reverse).
 
 Launch counts are reset just before each path's run (1, 4, 5, each mode of
-7, 8 (a)-(c), 9 (a)) and read just after.  Prints the card's name and power limit, one JSON line of
+7, 8 (a)-(c), 9 (a), 10 (a) and a fast and a modular tile of 10 (d)) and
+read just after.  Prints the card's name and power limit, one JSON line of
 per-kernel results, and as its last line {"ok": true, "device": {...}}.
 Any failure raises: the exit code is non-zero and the last line is not
 printed.  It imports nothing of JAX or of the JAX package.
@@ -116,6 +130,20 @@ N_SMALL = 196_608  # phase 8 (a): below auto_grid_threshold, so extract() runs d
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 BENCH_ITERS = 10
+# phase 10: config 4's ICP batch, the register bound, config 5's tiles
+ICP_BATCH, ICP_POINTS, ICP_ITERS = 50, 2048, 20
+ICP_CPU_TOWERS = 4  # (b) holds the card against the CPU on this many towers
+# (a): the towers whose boxes adopted vegetation, whose refined centres the
+# JAX refinement also leaves beyond TOWER_TOL_M of the member centroid on
+# the same member clouds (tests/test_torch_registration.py::
+# test_refine_widened_boxes_match_jax; scripts/torch_icp_widened_fixture.py)
+ICP_WIDENED = (2, 10)
+# (c): a d2 tile holds at most 2**25 float32 elements (128 MiB); at most four
+# tensors of its size are alive at once (the last tile's d2, the running sum
+# and two product terms of the fused multiply-adds): 512 MiB, bounded at 1.5
+# times that for the clouds and the caching allocator's rounding
+REGISTER_PEAK_BOUND = 768 << 20
+STREAM_TILES, STREAM_TILE_N, STREAM_SHIFT_M = 50, 1 << 20, 4500.0
 
 # name -> (source, TPU kernel it replaces, (module, launch counter))
 KERNELS = {
@@ -147,6 +175,8 @@ BENCH_PATH = FAST_PATH + ("compact_indices",)
 # phase 7: the bench configuration without the pre-cut packs its cell table
 # with compact_indices; each sort mode adds its own kernel
 SORT_PATH = ("segscan", "cluster_converge", "obb_accumulate", "compact_indices")
+# the modular step on a tile above auto_grid_threshold: grid_dbscan
+MODULAR_GRID_PATH = ("compactrows", "segscan", "cluster_converge")
 SORT_KERNEL = {"cell": "dupwin", "cell_untight": "dupwin", "hier": "winsort",
                "merge": "mergesort"}
 
@@ -298,6 +328,51 @@ def recording(module, attr, calls):
 
 
 @contextlib.contextmanager
+def kernel_calls(calls):
+    """Append (wrapper name, args, kwargs) for every call of the wrappers of
+    compactrows, segscan, cluster_converge and obb_accumulate made while
+    the block runs, under every name a module of the port binds them to
+    (``from ... import`` makes copies of the binding); the calls go
+    through.  A wrapper that calls another records both."""
+    # the modules that bind them, imported first: a later import would bind
+    # the unwrapped functions
+    from pointcloudhookup_tpu_torch.core import streaming  # noqa: F401
+    from pointcloudhookup_tpu_torch.models import pipeline, towers  # noqa: F401
+    from pointcloudhookup_tpu_torch.ops import (  # noqa: F401
+        cluster, cluster_grid, frontend_exact, frontend_fused, obb, segments, voxel,
+    )
+    from pointcloudhookup_tpu_torch.ops.kernels import (
+        cluster_converge, compactrows, obb_accum, segscan,
+    )
+    wrappers = {fn: name for name, fn in (
+        ("compactrows", compactrows.compact_rows_multi),
+        ("segscan", segscan.segmented_scan),
+        ("cluster_converge", cluster_converge.cluster_cells),
+        ("obb_accumulate", obb_accum.obb_accumulate),
+    )}
+
+    def record(fn, name):
+        def call(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    saved = []
+    for mod in [m for k, m in sys.modules.items()
+                if k.startswith("pointcloudhookup_tpu_torch") and m is not None]:
+        for attr, fn in list(vars(mod).items()):
+            name = next((n for w, n in wrappers.items() if fn is w), None)
+            if name is not None:
+                saved.append((mod, attr, fn))
+                setattr(mod, attr, record(fn, name))
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
 def no_plain_versions(modules):
     """Every ``*_plain`` function of the given kernel modules raises while
     the block runs: on the card no path may run a kernel's plain version."""
@@ -318,6 +393,39 @@ def no_plain_versions(modules):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def fma_check(dev, n: int = 1 << 22):
+    """ops/morton.py::fma_f32 on the card (torch.addcmul, float32) against
+    its float64 form on the CPU, bit for bit: 2**22 random triples of
+    spread magnitudes, products nearly cancelled by their sum (where a
+    twice-rounded a * b + c differs almost everywhere), and the [K, P, 1] x
+    [K, 1, A] + [K, P, A] broadcast of the OBB projections."""
+    from pointcloudhookup_tpu_torch.ops.morton import fma_f32
+
+    rng = np.random.default_rng(5)
+    f32 = np.float32
+
+    def spread(shape):
+        return (rng.standard_normal(shape) * 2.0 ** rng.integers(-20, 20, shape)).astype(f32)
+
+    x, y = spread(n), spread(n)
+    triples = {
+        "spread": (x, y, spread(n)),
+        "cancelled": (x, y, -(x.astype(np.float64) * y).astype(f32)),
+        "broadcast": (spread((64, 512, 1)), rng.random((64, 1, 17)).astype(f32),
+                      spread((64, 512, 17))),
+    }
+    out = {}
+    for label, abc in triples.items():
+        ref = fma_f32(*(torch.from_numpy(v) for v in abc))
+        got = fma_f32(*(torch.from_numpy(v).to(dev) for v in abc)).cpu()
+        twice = int((torch.from_numpy(abc[0] * abc[1] + abc[2]) != ref).sum())
+        out[label] = (int((got != ref).sum()), twice)
+    print(f"fma_f32 on the card vs its float64 form on the CPU: (mismatches, and those "
+          f"of a twice-rounded a * b + c) {out}")
+    if any(bad for bad, _ in out.values()):
+        raise AssertionError(f"fma_f32 on the card is not one rounding: {out}")
 
 
 def modular_phase(dev, pts, centers, reset_counts, read_counts, profile=None,
@@ -570,6 +678,31 @@ def voxel_parity(label, xyz, mask, voxel_size, chunk_size, dev):
     return err
 
 
+def gim_files(tmp, pts, centers):
+    """Phase 9 (a)'s inputs in tmp: the tile as a LAS at tm_forward(113.5,
+    28.2) (z + 80 m, scale 0.01) and a synthetic GIM of its towers (h = z -
+    25, r = 5; the GIM's 杆塔高 is the synthetic default).  Returns (LAS
+    path, GIM path, world points, GIM tower dicts, tower lon, tower lat)."""
+    from pointcloudhookup_tpu_torch.io.las import make_las, write_las
+    from pointcloudhookup_tpu_torch.io.synthetic import build_synthetic_gim
+    from pointcloudhookup_tpu_torch.ops.geo import tm_forward, tm_inverse
+
+    e0, n0 = (float(v) for v in tm_forward(113.5, 28.2))
+    shift = np.array([e0, n0, 80.0])
+    world, towers_w = pts + shift, centers + shift
+    glon, glat = tm_inverse(towers_w[:, 0], towers_w[:, 1])
+    t0 = time.perf_counter()
+    las_path = os.path.join(tmp, "tile.las")
+    write_las(make_las(world, scales=[0.01, 0.01, 0.01]), las_path)
+    gts = [dict(id=f"P{i}", lat=float(glat[i]), lng=float(glon[i]),
+                h=float(towers_w[i, 2]) - 25.0, r=5.0) for i in range(len(towers_w))]
+    gim_path = os.path.join(tmp, "model.gim")
+    build_synthetic_gim(gim_path, gts, workdir=os.path.join(tmp, "tree"))
+    print(f"tile as LAS at scale 0.01 and a {len(gts)}-tower GIM written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return las_path, gim_path, world, gts, glon, glat
+
+
 def gim_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, profile):
     """Phase 9: the GIM workflow on the card.
 
@@ -591,29 +724,15 @@ def gim_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, prof
     import io
 
     from pointcloudhookup_tpu_torch.__main__ import main as cli
-    from pointcloudhookup_tpu_torch.io.las import make_las, read_las, write_las
-    from pointcloudhookup_tpu_torch.io.synthetic import build_synthetic_gim, synthetic_corridor
+    from pointcloudhookup_tpu_torch.io.las import read_las
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
     from pointcloudhookup_tpu_torch.models import pipeline
-    from pointcloudhookup_tpu_torch.ops.geo import (
-        haversine_m, local_cgcs2000_to_wgs84, tm_forward, tm_inverse,
-    )
+    from pointcloudhookup_tpu_torch.ops.geo import haversine_m, local_cgcs2000_to_wgs84, tm_inverse
     from pointcloudhookup_tpu_torch.ops.kernels import segscan
 
     results = {}
-    e0, n0 = (float(v) for v in tm_forward(113.5, 28.2))
-    shift = np.array([e0, n0, 80.0])
-    world, towers_w = pts + shift, centers + shift
-    glon, glat = tm_inverse(towers_w[:, 0], towers_w[:, 1])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gim_") as tmp:
-        t0 = time.perf_counter()
-        las_path = os.path.join(tmp, "tile.las")
-        write_las(make_las(world, scales=[0.01, 0.01, 0.01]), las_path)
-        gts = [dict(id=f"P{i}", lat=float(glat[i]), lng=float(glon[i]),
-                    h=float(towers_w[i, 2]) - 25.0, r=5.0) for i in range(len(towers_w))]
-        gim_path = os.path.join(tmp, "model.gim")
-        build_synthetic_gim(gim_path, gts, workdir=os.path.join(tmp, "tree"))
-        print(f"(a) tile as LAS at scale 0.01 and a {len(gts)}-tower GIM written in "
-              f"{time.perf_counter() - t0:.1f} s")
+        las_path, gim_path, world, gts, glon, glat = gim_files(tmp, pts, centers)
 
         # ---- (a) run-all on the card, no plain version allowed
         out_gim = os.path.join(tmp, "corrected.gim")
@@ -723,6 +842,446 @@ def gim_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, prof
     return results, launches, compress_scan
 
 
+def syncs_in(fn) -> int:
+    """Host syncs fn makes, counted by torch.cuda.set_sync_debug_mode."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def config4_batch():
+    """benchmarks/config4_icp.py's batch: 50 lattice-tower clouds of 2,048
+    points (seed 0), each moved by a planted rotation about z (|angle| <=
+    0.15) and translation (|t| <= 1 m).  Returns (src, mask, dst, R, t)."""
+    rng = np.random.default_rng(0)
+    b, n = ICP_BATCH, ICP_POINTS
+    t_param = rng.uniform(0, 1, (b, n))
+    half = 6.0 * (1 - 0.7 * t_param)
+    src = np.stack([rng.uniform(-1, 1, (b, n)) * half, rng.uniform(-1, 1, (b, n)) * half,
+                    t_param * 35.0], axis=-1).astype(np.float32)
+    angles = rng.uniform(-0.15, 0.15, b)
+    ts = rng.uniform(-1, 1, (b, 3)).astype(np.float32)
+    rots = np.zeros((b, 3, 3), np.float32)
+    dst = np.empty_like(src)
+    for i in range(b):
+        c, s = np.cos(angles[i]), np.sin(angles[i])
+        rots[i] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        dst[i] = src[i] @ rots[i].T + ts[i]
+    return src, np.ones((b, n), bool), dst, rots, ts
+
+
+def gim_scenario(tmp):
+    """benchmarks/config4_icp.py::gim_scenario on the port: three towers
+    with a one-sided conductor stub each (seed 11), and a GIM of the
+    planted towers with 杆塔高 35.  Returns (points, centres, GIM path)."""
+    from pointcloudhookup_tpu_torch.io.synthetic import build_synthetic_gim, synthetic_corridor
+    from pointcloudhookup_tpu_torch.ops.geo import tm_forward, tm_inverse
+
+    rng = np.random.default_rng(11)
+    e0, n0 = (float(v) for v in tm_forward(113.5, 28.2))
+    pts, centers = synthetic_corridor(
+        rng, n_ground=4000, n_veg=800, pts_per_tower=500,
+        towers=((0.0, 0.0), (160.0, 60.0), (-170.0, -80.0)), tower_height=35.0,
+        extent=300.0, origin=(e0, n0, 80.0))
+    stubs = []
+    for c in centers:
+        s = rng.uniform(0, 1, 120)
+        stubs.append(np.column_stack([c[0] + 1.0 + s * 7.0, c[1] + rng.normal(0, 0.2, 120),
+                                      c[2] + 35.0 / 2 - 2.0 - 3.0 * s]))
+    gts = []
+    for i, c in enumerate(centers):
+        lon, lat = (float(v) for v in tm_inverse(c[0], c[1]))
+        gts.append(dict(id=f"P{41 + i}", lat=lat, lng=lon, h=float(c[2]) - 25.0, r=0.0,
+                        props={"杆塔编号": f"P{41 + i}", "杆塔高": "35.0", "呼高": "24",
+                               "Kv值": "220", "转角": "0.0"}))
+    gim = os.path.join(tmp, "truth.gim")
+    build_synthetic_gim(gim, gts, workdir=os.path.join(tmp, "tree"))
+    return np.vstack([pts] + stubs), centers, gim
+
+
+def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, counts_now,
+                                 kernel_modules, profile):
+    """Phase 10: registration and tile streaming on the card.
+
+      (a) ``correct --icp --save`` through ``__main__.main`` on phase 9's
+          4M LAS and GIM, no kernel's plain version allowed: 24 pairs, each
+          with an ICP rmse, every refined centre within TOWER_TOL_M (xy) of
+          its member centroid but those of ICP_WIDENED, which stay inside
+          their boxes (within half the smaller width), the card within 1 mm
+          of the CPU
+          on ICP_CPU_TOWERS pairs and the farthest one, the saved GIM
+          reopens, no kernel launched by the ICP; wall ms of extract, ICP
+          and save, the ICP's device-busy ms;
+      (b) batched_icp at config 4's shape (50 towers, 2,048 points, 20
+          iterations): R within 0.05 and t within 0.2 m of the planted
+          motions, R within 1e-4 and t within 1e-3 m of the CPU's on the
+          first ICP_CPU_TOWERS towers; ms per call, tower-ICP-iterations
+          per second, host syncs per ICP iteration;
+      (c) ``register`` on the 4M tile: 24 transforms printed, the ICP's
+          peak allocated device memory within REGISTER_PEAK_BOUND;
+      (d) stream_extract with config 5's parameters (method grid, 8,192
+          cells, density floor 3), fast, u16 wire, capacity 1,048,576,
+          prefetch 1, over STREAM_TILES LAS tiles of STREAM_TILE_N points
+          (bench corridors, seed t, centred, x + t * 4,500 m, scale 0.001),
+          the towers merged as ``stream-extract`` merges them: 24 towers a
+          tile, 1,200 after the cross-tile dedup, each generated tower
+          within TOWER_TOL_M (xy) of a member centroid, the native reader;
+          wall s, Mpts/s, decode and staging ms a tile, and over two
+          profiled tiles the host-to-device ms, device-busy ms and idle
+          share; the launches of one fast and one modular tile, and
+          their kernel calls (for phase 3); the governor's capacity; the device bytes a point of capacity of one
+          fused and one modular step on the 4M tile;
+      (e) the card against the CPU: a 131,072-row corridor streamed in
+          32,768-row chunks on both wires (staged coordinates bit-equal),
+          fast and modular (the same towers, centres within 1 mm), and
+          correct(icp=True) on config 4's gim_scenario (the same pairs,
+          refined centres within 1 mm).
+
+    Returns (results, launches of the stream-extract tiles, their kernel
+    calls by tile)."""
+    import io
+
+    from pointcloudhookup_tpu_torch.__main__ import main as cli
+    from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams, GroundParams
+    from pointcloudhookup_tpu_torch.core import governor, streaming
+    from pointcloudhookup_tpu_torch.io.las import make_las, write_las
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
+    from pointcloudhookup_tpu_torch.models import pipeline, refine
+    from pointcloudhookup_tpu_torch.models.towers import extract_step, towers_from_stats
+    from pointcloudhookup_tpu_torch.ops import registration
+    from pointcloudhookup_tpu_torch.ops.frontend_fused import fused_extract_step
+    from pointcloudhookup_tpu_torch.ops.kernels import segscan
+    from pointcloudhookup_tpu_torch.utils.validate import quality_dedup
+
+    results, launches, stream_calls = {}, {}, {}
+    params = ExtractParams()
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli(argv)
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3, buf.getvalue()
+
+    @contextlib.contextmanager
+    def capturing(module, attr, calls, before=None, **extra):
+        """Record (args, kwargs, result) of every module.attr call, passing
+        extra keyword arguments through; before() runs ahead of each."""
+        fn = getattr(module, attr)
+
+        def call(*args, **kwargs):
+            if before is not None:
+                before()
+            out = fn(*args, **kwargs, **extra)
+            calls.append((args, kwargs, out))
+            return out
+
+        setattr(module, attr, call)
+        try:
+            yield calls
+        finally:
+            setattr(module, attr, fn)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_icp_") as tmp:
+        las_path, gim_path, _, gts, _, _ = gim_files(tmp, pts, centers)
+
+        # ---- (a) correct --icp on the card, no plain version allowed
+        out_gim = os.path.join(tmp, "icp.gim")
+        walls, refined, icp_counts = {}, [], []
+
+        def count_before():
+            icp_counts.append(counts_now())
+
+        with no_plain_versions(kernel_modules), \
+                stage_walls(pipeline, ("extract_from_points", "save_gim"), dev, walls,
+                            (segscan, "launches")), \
+                stage_walls(refine, ("refine_tower_centers",), dev, walls,
+                            (segscan, "launches")), \
+                capturing(refine, "refine_tower_centers", refined, before=count_before):
+            reset_counts()
+            ms_a, out = run_cli(["correct", gim_path, las_path, "--icp", "--save", out_gim,
+                                 "--device", str(dev), "--output-folder",
+                                 os.path.join(tmp, "oa")])
+            icp_counts.append(counts_now())
+        read_counts(EXACT_PATH, "(a) correct --icp")
+        icp_launches = {k: icp_counts[1][k] - icp_counts[0][k] for k in icp_counts[0]}
+        args, kwargs, ref_out = refined[0]
+        towers_a, clouds, pair_idx = args[0], args[1], args[2]
+        off = {pi: float(np.linalg.norm(r["center"][:2] - clouds[pi].mean(axis=0)[:2]))
+               for pi, r in ref_out.items()}
+        far = {pi: (round(d, 3), round(float(towers_a[pi].extent[1]), 1))
+               for pi, d in off.items() if d > TOWER_TOL_M}
+        shift_xy = max(off.values())
+        # the card against the CPU on the first ICP_CPU_TOWERS pairs and the
+        # farthest one (the template is 280 points for every pair, so the
+        # padding, and each pair's result, is that of the whole batch)
+        sub = sorted(set(pair_idx[:ICP_CPU_TOWERS]) | {max(off, key=off.get)})
+        cpu_out = refine.refine_tower_centers(towers_a, clouds, sub,
+                                              **dict(kwargs, device="cpu"))
+        vs_cpu = max(float(np.abs(cpu_out[pi]["center"] - ref_out[pi]["center"]).max())
+                     for pi in sub)
+        inside = set(far) <= set(ICP_WIDENED) and all(
+            off[pi] <= towers_a[pi].extent[1] / 2 for pi in far)
+        rmse_lines = [ln for ln in out.splitlines() if "icp rmse" in ln]
+        reopened, _, _ = pipeline.import_gim(out_gim, os.path.join(tmp, "ra"))
+        prof_icp = profile(lambda: refine.refine_tower_centers(*args, **kwargs), top=8)
+        stage = dict(extract=walls["extract_from_points"][0],
+                     icp=walls["refine_tower_centers"][0], save=walls["save_gim"][0])
+        print(f"(a) correct --icp: wall {ms_a:.1f} ms; stages (wall ms) "
+              + ", ".join(f"{k} {v:.1f}" for k, v in stage.items())
+              + f"; {len(ref_out)} towers refined, {len(rmse_lines)} rmse lines, refined "
+              f"centres from the member centroid (xy): worst {shift_xy:.3f} m, "
+              f"{len(off) - len(far)} within {TOWER_TOL_M} m, beyond it (m, box width ey) "
+              f"{far}, only towers of {ICP_WIDENED} and within ey / 2: {inside}; card vs CPU on pairs {sub}: centres "
+              f"within {vs_cpu:.3g} m; kernel launches in the "
+              f"ICP {icp_launches}; saved GIM reopens with {len(reopened)} towers; ICP, one "
+              f"profiled call: wall {prof_icp['wall_ms']:.1f} ms, device busy "
+              f"{prof_icp['device_ms']} ms, idle share {prof_icp['idle_share']}; device ms by "
+              "kernel: " + ", ".join(f"{k[:50]} {v:.3f}" for k, v in prof_icp["top"]))
+        if (f"{len(gts)} pairs matched" not in out or len(rmse_lines) != len(gts)
+                or len(ref_out) != len(gts) or not inside or vs_cpu > 1e-3
+                or len(reopened) != len(gts) or "saved" not in out.splitlines()
+                or any(icp_launches.values())):
+            raise AssertionError(f"(a) correct --icp: {len(rmse_lines)} rmse lines, "
+                                 f"{len(ref_out)} refined, worst {shift_xy:.2f} m, inside "
+                                 f"{inside}, vs CPU {vs_cpu}, {len(reopened)} reopened, "
+                                 f"launches {icp_launches}")
+        results["a"] = dict(wall_ms=ms_a, stage_ms=stage, refined=len(ref_out),
+                            worst_centroid_m=shift_xy, beyond_tol=far, vs_cpu_m=vs_cpu,
+                            icp_launches=icp_launches,
+                            icp_profile={k: prof_icp[k] for k in ("wall_ms", "device_ms",
+                                                                   "idle_share")},
+                            template_points=int(len(refine.tower_frame_template(30.0, 10.0))),
+                            cloud_points_max=int(max(len(clouds[pi]) for pi in pair_idx)))
+
+        # ---- (c) register on the card: the ICP's peak device memory
+        peaks = []
+
+        def reset_peak():
+            torch.cuda.synchronize(dev)
+            peaks.append(torch.cuda.memory_allocated(dev))
+            torch.cuda.reset_peak_memory_stats(dev)
+
+        regs = []
+        with capturing(registration, "register_tower_pairs", regs, before=reset_peak):
+            ms_c, out = run_cli(["register", gim_path, las_path, "--device", str(dev),
+                                 "--output-folder", os.path.join(tmp, "oc")])
+        peak = torch.cuda.max_memory_allocated(dev) - peaks[0]
+        lines = [ln for ln in out.splitlines() if ln.startswith("GIM[")]
+        pc, gc = regs[0][0][0], regs[0][0][1]
+        untiled = len(pc) * max(map(len, pc)) * max(map(len, gc)) * 4
+        print(f"(c) register: wall {ms_c:.1f} ms, {len(lines)} transforms; batch {len(pc)} x "
+              f"{max(map(len, pc))} x {max(map(len, gc))}: peak allocated in the ICP "
+              f"{peak / 2**20:.1f} MiB (bound {REGISTER_PEAK_BOUND / 2**20:.0f} MiB; an untiled "
+              f"d2 alone {untiled / 2**30:.2f} GiB); first: {lines[0] if lines else None}")
+        if len(lines) != len(gts) or peak > REGISTER_PEAK_BOUND:
+            raise AssertionError(f"(c) register: {len(lines)} transforms, peak {peak} bytes")
+        results["c"] = dict(wall_ms=ms_c, transforms=len(lines), peak_bytes=peak,
+                            bound_bytes=REGISTER_PEAK_BOUND, untiled_d2_bytes=untiled,
+                            batch=[len(pc), max(map(len, pc)), max(map(len, gc))])
+
+    # ---- (b) config 4's batch: recovery, card vs CPU, speed, syncs
+    src, mask, dst, rots, ts = config4_batch()
+    args_d = [torch.from_numpy(a).to(dev) for a in (src, mask, dst, mask)]
+    ms_b, out = timed(lambda: registration.batched_icp(*args_d, iters=ICP_ITERS), 3)
+    r_err = float(np.abs(out["R"].cpu().numpy() - rots).max())
+    t_err = float(np.abs(out["t"].cpu().numpy() - ts).max())
+    k = ICP_CPU_TOWERS
+    t0 = time.perf_counter()
+    ref = registration.batched_icp(*(torch.from_numpy(a[:k]) for a in (src, mask, dst, mask)),
+                                   iters=ICP_ITERS)
+    cpu_s = time.perf_counter() - t0
+    r_cpu = max_abs(out["R"][:k].cpu(), ref["R"])
+    t_cpu = max_abs(out["t"][:k].cpu(), ref["t"])
+    prof_b = profile(lambda: registration.batched_icp(*args_d, iters=ICP_ITERS), top=6)
+    syncs = [syncs_in(lambda i=i: registration.batched_icp(*args_d, iters=i)) for i in (1, 2)]
+    rate = ICP_BATCH * ICP_ITERS / (ms_b / 1e3)
+    print(f"(b) batched_icp {ICP_BATCH} x {ICP_POINTS}, {ICP_ITERS} iterations: {ms_b:.2f} ms a "
+          f"call, {rate:.0f} tower-ICP-iterations/s; from the planted motions R {r_err:.2e}, "
+          f"t {t_err:.2e} m (bounds 0.05, 0.2); card vs CPU ({k} towers, {cpu_s:.1f} s on the "
+          f"CPU) R {r_cpu:.2e}, t {t_cpu:.2e} m (bounds 1e-4, 1e-3); host syncs per call at 1 "
+          f"and 2 iterations {syncs} -> {syncs[1] - syncs[0]} a iteration; one profiled call: "
+          f"device busy {prof_b['device_ms']} ms, idle share {prof_b['idle_share']}; device ms "
+          "by kernel: " + ", ".join(f"{k_[:50]} {v:.3f}" for k_, v in prof_b["top"]))
+    if r_err > 0.05 or t_err > 0.2 or r_cpu > 1e-4 or t_cpu > 1e-3:
+        raise AssertionError(f"(b) batched_icp: R {r_err}, t {t_err}, vs CPU {r_cpu}, {t_cpu}")
+    results["b"] = dict(ms=ms_b, tower_icp_iters_per_s=rate, r_err=r_err, t_err=t_err,
+                        r_vs_cpu=r_cpu, t_vs_cpu=t_cpu, syncs_1_2=syncs,
+                        syncs_per_iteration=syncs[1] - syncs[0],
+                        device_ms=prof_b["device_ms"], idle_share=prof_b["idle_share"])
+
+    # ---- (d) stream_extract at config 5's scale and parameters
+    p5 = ExtractParams(cluster=ClusterParams(method="grid", max_cells=8192,
+                                             min_cell_points=3))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        t0 = time.perf_counter()
+        paths, all_centers, n_total = [], [], 0
+        for t in range(STREAM_TILES):
+            p, c = corridor_tile(STREAM_TILE_N, seed=t)
+            shift = np.array([t * STREAM_SHIFT_M, 0.0, 0.0]) - p.mean(axis=0)
+            paths.append(os.path.join(tmp, f"tile_{t:02d}.las"))
+            write_las(make_las(p + shift, scales=[0.001, 0.001, 0.001]), paths[-1])
+            all_centers.append(c + shift)
+            n_total += len(p)
+        all_centers = np.concatenate(all_centers)
+        print(f"(d) {STREAM_TILES} tiles, {n_total} points, written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        b_gov = governor.budget(device=dev, n_points=STREAM_TILE_N)
+        with no_plain_versions(kernel_modules):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            res = streaming.stream_extract(paths, capacity=STREAM_TILE_N, params=p5,
+                                           fast=True, wire="u16", prefetch=1, timings=True,
+                                           device=dev)
+            stream_ms = (time.perf_counter() - t0) * 1e3
+            towers = []
+            for st, m in res:
+                towers.extend(towers_from_stats(st, np.asarray(m["origin"])))
+            kept = quality_dedup(towers, loose_radius=p5.filters.duplicate_threshold)
+            ms_d = (time.perf_counter() - t0) * 1e3
+        metas = [m for _, m in res]
+        worst = nearest_xy(all_centers, [tw.centroid for tw in kept])
+        per_tile_towers = sorted({int(st["accepted"].sum()) for st, _ in res})
+        readers = sorted({m["reader"] for m in metas})
+        decode_ms = 1e3 * np.mean([m["decode_seconds"] for m in metas])
+        stage_ms = 1e3 * np.mean([m["stage_seconds"] for m in metas])
+        step_ms = 1e3 * np.mean([m["step_seconds"] for m in metas])
+        prof_d = profile(lambda: streaming.stream_extract(
+            paths[:2], capacity=STREAM_TILE_N, params=p5, fast=True, device=dev), top=40)
+        h2d_ms = sum(v for k_, v in prof_d["top"] if "HtoD" in k_) / 2
+        print(f"(d) stream_extract: {len(kept)} towers across {len(res)} tiles; wall "
+              f"{ms_d / 1e3:.2f} s, {n_total / ms_d / 1e3:.2f} Mpts/s end to end (the streaming "
+              f"{stream_ms / 1e3:.2f} s, {n_total / stream_ms / 1e3:.2f} Mpts/s; the towers and "
+              f"the cross-tile dedup {(ms_d - stream_ms) / 1e3:.2f} s); towers a tile "
+              f"{per_tile_towers}, worst generated tower from a member centroid {worst:.3f} m "
+              f"(xy); reader {readers}; a tile: decode {decode_ms:.1f} ms, staging "
+              f"{stage_ms:.1f} ms, step (dispatch and [K] fetches) {step_ms:.1f} ms; two "
+              f"profiled tiles: wall {prof_d['wall_ms']:.1f} ms, device busy "
+              f"{prof_d['device_ms']} ms, idle share {prof_d['idle_share']}, host-to-device "
+              f"{h2d_ms:.3f} ms a tile; governor: capacity {b_gov.capacity:,} ({b_gov.reason})")
+        if (len(res) != STREAM_TILES or per_tile_towers != [24]
+                or len(kept) != len(all_centers) or worst > TOWER_TOL_M
+                or readers != ["native"]):
+            raise AssertionError(f"(d) stream_extract: {len(kept)} towers, per tile "
+                                 f"{per_tile_towers}, worst {worst:.2f} m, readers {readers}")
+        for fast, name, path_kernels in ((True, "stream_fast", FAST_PATH),
+                                         (False, "stream_modular", MODULAR_GRID_PATH)):
+            with kernel_calls(stream_calls.setdefault(name, [])):
+                reset_counts()
+                one = streaming.stream_extract(paths[:1], capacity=STREAM_TILE_N, params=p5,
+                                               fast=fast, device=dev)
+                torch.cuda.synchronize(dev)
+            launches[name] = read_counts(path_kernels, f"(d) one stream_extract tile, "
+                                                       f"{'fast' if fast else 'modular'}")
+            print(f"(d) one {'fast' if fast else 'modular'} tile: "
+                  f"{int(one[0][0]['accepted'].sum())} towers")
+        results["d"] = dict(tiles=STREAM_TILES, points=n_total, wall_s=ms_d / 1e3,
+                            mpts_per_s=n_total / ms_d / 1e3, stream_s=stream_ms / 1e3,
+                            stream_mpts_per_s=n_total / stream_ms / 1e3, towers=len(kept),
+                            worst_m=worst, readers=readers, decode_ms=decode_ms,
+                            staging_ms=stage_ms, step_ms=step_ms, h2d_ms_per_tile=h2d_ms,
+                            profile={k_: prof_d[k_] for k_ in ("wall_ms", "device_ms",
+                                                                "idle_share")},
+                            governor_capacity=b_gov.capacity, governor_reason=b_gov.reason)
+
+    # device memory a point of capacity: one fused and one modular step, 4M
+    xyz_np, mask_np = padded(pts, N_POINTS)
+    peaks = {}
+    for name, step in (
+            ("fast", lambda x, m: fused_extract_step(
+                x, m, params, geometric_voxels=True,
+                min_cell_points=max(params.cluster.min_cell_points, 1), sort_mode="full",
+                precut_div=4)),
+            ("modular", lambda x, m: extract_step(x, m, params))):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step(torch.from_numpy(xyz_np).to(dev), torch.from_numpy(mask_np).to(dev))
+        torch.cuda.synchronize(dev)
+        peaks[name] = torch.cuda.max_memory_allocated(dev) - base
+    per_point = max(peaks.values()) / N_POINTS
+    print(f"device memory of one step on {N_POINTS} rows (inputs included): fast "
+          f"{peaks['fast'] / 2**20:.1f} MiB, modular {peaks['modular'] / 2**20:.1f} MiB -> "
+          f"{per_point:.1f} bytes a point of capacity (governor: "
+          f"{governor.DEVICE_BYTES_PER_POINT})")
+    if per_point > governor.DEVICE_BYTES_PER_POINT:
+        raise AssertionError(f"a step takes {per_point:.1f} bytes a point, above the "
+                             f"governor's {governor.DEVICE_BYTES_PER_POINT}")
+    results["device_bytes"] = dict(peaks, per_point=per_point,
+                                   governor=governor.DEVICE_BYTES_PER_POINT)
+
+    # ---- (e) the card against the CPU on the new paths
+    n_e = 131_072
+    xs = np.linspace(-400, 400, 6)
+    pts_e, _ = synthetic_corridor(
+        np.random.default_rng(13), n_ground=int(n_e * 0.8), n_veg=int(n_e * 0.12),
+        towers=tuple(zip(xs, 30.0 * np.sin(xs / 200.0))),
+        pts_per_tower=(n_e - int(n_e * 0.92)) // 6, extent=450.0)
+    pts_e = pts_e[:n_e]
+    results["e"] = {}
+    for wire in ("u16", "f32"):
+        staged = [(x.cpu(), m.cpu()) for x, m, _ in streaming.TileStreamer(
+            [pts_e], capacity=32_768, wire=wire, device=dev)]
+        staged_c = [(x, m) for x, m, _ in streaming.TileStreamer(
+            [pts_e], capacity=32_768, wire=wire, device="cpu")]
+        if not all(torch.equal(a, c) and torch.equal(b, d)
+                   for (a, b), (c, d) in zip(staged, staged_c)):
+            raise AssertionError(f"(e) {wire} wire: staged chunks differ on the card")
+        for fast in (True, False):
+            kw = dict(capacity=32_768, params=params, wire=wire, fast=fast, fetch_labels=True)
+            got = streaming.stream_extract([pts_e], device=dev, **kw)
+            ref = streaming.stream_extract([pts_e], device="cpu", **kw)
+            found, diff = 0, 0.0
+            for (g, _), (r, _) in zip(got, ref):
+                for key in ("accepted", "count"):
+                    if not np.array_equal(g[key], r[key]):
+                        raise AssertionError(f"(e) {wire}, fast={fast}: {key} differs")
+                if not np.array_equal(g["labels"], r["labels"]):
+                    raise AssertionError(f"(e) {wire}, fast={fast}: labels differ")
+                acc = r["accepted"]
+                found += int(acc.sum())
+                if acc.any():
+                    diff = max(diff, float(np.abs(g["center"][acc] - r["center"][acc]).max()))
+            label = f"{wire} wire, {'fast' if fast else 'modular'}"
+            print(f"(e) {n_e} rows in chunks of 32,768, {label}: card == CPU ({found} towers, "
+                  f"centres within {diff:.3g} m; staged chunks bit-equal)")
+            if found == 0 or diff > 1e-3:
+                raise AssertionError(f"(e) {label}: {found} towers, centres {diff} m apart")
+            results["e"][label] = dict(towers=found, center_diff_m=diff)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cfg4_") as tmp:
+        pts_s, centers_s, gim_s = gim_scenario(tmp)
+        records, _, _ = pipeline.import_gim(gim_s, os.path.join(tmp, "o"))
+        sp = ExtractParams(ground=GroundParams(min_points_after=100),
+                           cluster=ClusterParams(eps=5.0, min_points=30),
+                           max_clusters=32, obb_angles=128)
+        res = {}
+        for d in (dev, "cpu"):
+            tw, st, _ = pipeline.extract_from_points(pts_s, sp, capacity=8192, device=d)
+            lab = st["labels"][: len(pts_s)]
+            res[str(d)] = pipeline.correct(records, tw, icp=True, device=d,
+                                           pc_clouds=[pts_s[lab == x.label] for x in tw])
+        g, c = res[str(dev)], res["cpu"]
+        diff = max(float(np.abs(np.subtract(g.converted_towers[pi].original_center,
+                                            c.converted_towers[pi].original_center)).max())
+                   for _, pi in c.pairs) if c.pairs else np.inf
+        print(f"(e) gim_scenario correct(icp=True): pairs {g.pairs} on the card, {c.pairs} on "
+              f"the CPU; refined centres within {diff:.3g} m")
+        if g.pairs != c.pairs or len(c.pairs) != len(centers_s) or diff > 1e-3:
+            raise AssertionError(f"(e) gim_scenario: pairs {g.pairs} / {c.pairs}, {diff} m")
+        results["e"]["gim_scenario"] = dict(pairs=len(c.pairs), center_diff_m=diff)
+    return results, launches, stream_calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -748,7 +1307,7 @@ def main() -> int:
         segscan,
         winsort,
     )
-    from pointcloudhookup_tpu_torch.ops.morton import morton_decode
+    from pointcloudhookup_tpu_torch.ops.morton import fma_f32, morton_decode
     from pointcloudhookup_tpu_torch.ops.obb import (
         _compact_valid_rows,
         cluster_obb_stats_accum,
@@ -762,6 +1321,9 @@ def main() -> int:
     def reset_counts():
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
+
+    def counts_now():
+        return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
 
     def read_counts(path_kernels, what):
         counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
@@ -850,6 +1412,7 @@ def main() -> int:
         if np.abs(a.center - b.center).max() > 1e-3:
             raise AssertionError("small tile: tower centres differ by > 1 mm")
     print(f"small tile: GPU == CPU plain versions ({len(tg)} towers)")
+    fma_check(dev)
 
     # ---- 4. the fast path through its user entry point
     params = ExtractParams()
@@ -1014,6 +1577,13 @@ def main() -> int:
     gim, launches["gim_run_all"], compress_scan = gim_phase(
         dev, pts, centers, reset_counts, read_counts, kernel_modules, profile_iteration)
 
+    # ---- 10. registration (correct --icp, batched_icp, register) and
+    # tile streaming (stream-extract at config 5's scale), card vs CPU
+    phase10, stream_launches, stream_calls = registration_streaming_phase(
+        dev, pts, centers, reset_counts, read_counts, counts_now, kernel_modules,
+        profile_iteration)
+    launches.update(stream_launches)
+
     # ---- 3. each kernel vs its plain version at the paths' shapes.
     # Exact path: inputs as extract_from_points pads them; capacities as
     # the retry ladder settles them (an uncounted run of the path)
@@ -1124,27 +1694,27 @@ def main() -> int:
     n_alive = int(alive.sum())
     eps2 = torch.tensor(params.cluster.eps, dtype=torch.float32, device=dev) ** 2
 
-    def pair_counts(centers, allowed):
+    def pair_counts(centers, allowed, e2=eps2):
         """Per row, the allowed columns within eps (int64)."""
         k = centers.shape[0]
         cnt, _ = neighbor.neighbor_reduce_plain(
             centers, torch.zeros(k, dtype=torch.int32, device=dev),
-            torch.ones(k, dtype=torch.float32, device=dev), allowed, eps2, mode="pop")
+            torch.ones(k, dtype=torch.float32, device=dev), allowed, e2, mode="pop")
         return cnt.to(torch.int64)
 
-    def converge_pairs(centers, ccount_c, alive_c, min_points):
+    def converge_pairs(centers, ccount_c, alive_c, min_points, e2=eps2):
         """cluster_cells' pairs: the pop pass (every row, alive columns),
         the union (core pairs, each once) and the border pass (non-core
         alive rows, core columns); and the all-pairs count of the three."""
         k = centers.shape[0]
         pop_c, _ = neighbor.neighbor_reduce_plain(
             centers, torch.zeros(k, dtype=torch.int32, device=dev), ccount_c, alive_c,
-            eps2, mode="pop")
+            e2, mode="pop")
         pop_c = torch.where(centers[:, 0].abs() < 1e37, pop_c, 0.0)
         core_c = alive_c & (pop_c >= float(min_points))
-        to_core = pair_counts(centers, core_c)
-        selfp = int((core_c & (((centers - centers) ** 2).sum(1) <= eps2)).sum())
-        pairs = (int(pair_counts(centers, alive_c).sum())
+        to_core = pair_counts(centers, core_c, e2)
+        selfp = int((core_c & (((centers - centers) ** 2).sum(1) <= e2)).sum())
+        pairs = (int(pair_counts(centers, alive_c, e2).sum())
                  + (int(to_core[core_c].sum()) - selfp) // 2
                  + int(to_core[alive_c & ~core_c].sum()))
         live, nc = int(alive_c.sum()), int(core_c.sum())
@@ -1506,6 +2076,64 @@ def main() -> int:
          exact("compactrows"), nbytes=compact_bytes(keep_g, 4, m_g),
          library_fn=lambda: stacked_g[:, keep_g])
 
+    # the streaming paths' own calls (phase 10 (d)): every kernel call of one
+    # fast and one modular stream_extract tile of STREAM_TILE_N points with
+    # config 5's parameters (the ground pre-cut, the 8,192-cell grid table),
+    # each held against its plain version
+    for tile, calls in stream_calls.items():
+        for i, (name, args, kw) in enumerate(calls):
+            label = f"{tile} (10d) call {i}"
+            if name == "compactrows":
+                keep_t, chans_t, cap_t = args[:3]
+                stacked_t = torch.stack(chans_t)
+                case(name, f"{label}: keep[{keep_t.shape[0]}] ({int(keep_t.sum())} set) "
+                           f"x{len(chans_t)} -> {cap_t}",
+                     lambda a=args, k_=kw: compactrows.compact_rows_multi(*a, **k_),
+                     lambda a=args, k_=kw: compactrows.compact_rows_multi_plain(*a, **k_),
+                     exact(name), nbytes=compact_bytes(keep_t, len(chans_t), cap_t),
+                     library_fn=lambda st=stacked_t, kp=keep_t: st[:, kp])
+            elif name == "segscan":
+                vals_t, flags_t, op_t, rev_t = args
+                fn = lambda a=args: segscan.segmented_scan(*a)  # noqa: E731
+                cols = vals_t[0].numel()
+                cmp = (exact(name) if not vals_t.is_floating_point()
+                       else cmp_sums(vals_t, flags_t, rev_t, fn))
+                case(name, f"{label}: {op_t} {'reverse' if rev_t else 'forward'} "
+                           f"{str(vals_t.dtype)[6:]}{list(vals_t.shape)}",
+                     fn, lambda a=args: segscan.segmented_scan_plain(*a), cmp,
+                     nbytes=vals_t.shape[0] * (2 * cols * vals_t.element_size() + 1))
+            elif name == "cluster_converge":
+                mp = float(args[5])
+                pairs, all_pairs, nc = converge_pairs(args[0], args[1], args[2], mp,
+                                                      args[4])
+                case(name, f"{label}: M={args[0].shape[0]} ({int(args[2].sum())} live), "
+                           f"min_points {mp:g}, {nc} core",
+                     lambda a=args, k_=kw: cluster_converge.cluster_cells(*a, **k_),
+                     lambda a=args, k_=kw: cluster_converge.cluster_cells_plain(*a, **k_),
+                     exact(name), nbytes=args[0].shape[0] * (12 + 4 + 1 + 4 + 4 + 4),
+                     pairs=pairs, all_pairs=all_pairs, plain_reps=1)
+            else:  # obb_accumulate
+                hi_t, lo_t, lab_t, mn_t = args
+                vs_t, off_t = obb_accum._morton_offset(mn_t, kw["voxel_size"])
+                vs_d = torch.tensor(vs_t, dtype=torch.float32, device=dev)
+                absxyz = [fma_f32(v.to(torch.float32), vs_d, off_t[j]).abs()
+                          for j, v in enumerate(morton_decode(hi_t, lo_t))]
+                k_t, a_t = kw["max_clusters"], kw["num_angles"]
+                mag_t = obb_accum.obb_accumulate_xyz_plain(*absxyz, lab_t, max_clusters=k_t,
+                                                           num_angles=a_t)
+                n_lab_t = int(((lab_t >= 0) & (lab_t < k_t)).sum())
+                case(name, f"{label}: rows {hi_t.shape[0]} ({n_lab_t} labelled), "
+                           f"K={k_t}, A={a_t}",
+                     lambda a=args, k_=kw: obb_accum.obb_accumulate(*a, **k_),
+                     lambda a=args, k_=kw: obb_accum.obb_accumulate_plain(*a, **k_),
+                     cmp_obb(name, mag_t), nbytes=hi_t.shape[0] * 12 + 12
+                     + 4 * (6 * k_t + 4 * k_t * a_t), flops=6.0 * n_lab_t * a_t)
+    missing = [(tile, name) for tile, path in (("stream_fast", FAST_PATH),
+                                               ("stream_modular", MODULAR_GRID_PATH))
+               for name in path if name not in {c[0] for c in stream_calls[tile]}]
+    if missing:
+        raise AssertionError(f"phase 3: no captured call of {missing}")
+
     entries = []
     for name, (source, replaces, _) in KERNELS.items():
         cases = results[name]
@@ -1535,6 +2163,7 @@ def main() -> int:
         bench_precut_div=precut_div, bench=bench, bench_profile=profile,
         sort_modes=sort_modes, mergesort_parts=mergesort_parts, modular=modular,
         cluster_converge_row_order=order_ms, gim_workflow=gim,
+        registration_streaming=phase10,
     )))
     print(json.dumps(dict(kernels=entries)))
     print(json.dumps(dict(

@@ -4,9 +4,11 @@ The reference's GIM workflow as headless subcommands (import GIM, import
 point cloud, compress, extract, match, correct, save) and ``run-all``,
 which chains them: compress -> extract -> import GIM -> correct -> save.
 Each takes the JAX package's arguments and defaults
-(``pointcloudhookup_tpu/cli.py``) plus ``--device``; ``correct`` has no
-``--icp`` (the ICP refinement is not ported).  A missing file or a bad
-value exits with code 2.
+(``pointcloudhookup_tpu/cli.py``) plus ``--device``: ``correct --icp``
+refines the matched towers by batched ICP, ``register`` aligns each matched
+tower's points from its GIM position, and ``stream-extract`` runs the
+extraction over streamed tiles.  A missing file or a bad value exits with
+code 2.
 """
 
 from __future__ import annotations
@@ -122,14 +124,41 @@ def cmd_extract(args):
         )
 
 
+def _extract_with_labels(args):
+    """One extraction that yields the towers and each point's label, so
+    ``labels == t.label`` selects exactly t's members.  Returns (points
+    f64[N, 3], towers, labels int[N])."""
+    from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams
+    from pointcloudhookup_tpu_torch.io.las import read_las
+    from pointcloudhookup_tpu_torch.models.pipeline import extract_from_points
+
+    pts = read_las(args.las).xyz()
+    params = ExtractParams(cluster=ClusterParams(eps=args.eps, min_points=args.min_points))
+    towers, stats, _origin = extract_from_points(pts, params, device=args.device)
+    print(f"extraction complete: {len(towers)} towers")
+    return pts, towers, stats["labels"][: len(pts)]
+
+
 def cmd_match(args, corrected: bool = False):
     from pointcloudhookup_tpu_torch.models import pipeline
 
     records, folder, _ = pipeline.import_gim(args.gim, args.output_folder)
-    towers = pipeline.extract(args.las, log_callback=print, eps=args.eps,
-                              min_points=args.min_points, device=args.device)
-    fn = pipeline.correct if corrected else pipeline.match
-    res = fn(records, towers, region_n_value=args.region_n_value)
+    if corrected and args.icp:
+        pts, towers, labels = _extract_with_labels(args)
+        res = pipeline.correct(
+            records, towers, region_n_value=args.region_n_value, icp=True,
+            pc_clouds=[pts[labels == t.label] for t in towers],
+            icp_iters=args.icp_iters, icp_max_corr_dist=args.icp_max_corr_dist,
+            device=args.device,
+        )
+        for c in res.converted_towers:
+            if c.icp_rmse is not None:
+                print(f"  {c.id}: icp rmse {c.icp_rmse:.3f} m")
+    else:
+        towers = pipeline.extract(args.las, log_callback=print, eps=args.eps,
+                                  min_points=args.min_points, device=args.device)
+        fn = pipeline.correct if corrected else pipeline.match
+        res = fn(records, towers, region_n_value=args.region_n_value)
     print(f"{len(res.pairs)} pairs matched")
     for gi, pi in res.pairs:
         print(f"  GIM[{gi}] {res.gim_rows[gi][0]} <-> PC[{pi}] {res.pc_rows[pi][0]}")
@@ -151,6 +180,91 @@ def cmd_reproject(args):
 
     n = reproject_las(args.input, args.output, log_callback=print, device=args.device)
     print(f"{n} points reprojected")
+
+
+def cmd_register(args):
+    """Batched ICP of each matched tower's points, seen from its GIM
+    position, onto the same points about the tower's box centre: the
+    translation is the GIM-to-cloud offset."""
+    import numpy as np
+
+    from pointcloudhookup_tpu_torch.models import pipeline
+    from pointcloudhookup_tpu_torch.ops.geo import wgs84_to_cgcs2000
+    from pointcloudhookup_tpu_torch.ops.registration import register_tower_pairs
+
+    records, folder, _ = pipeline.import_gim(args.gim, args.output_folder)
+    pts, towers, labels = _extract_with_labels(args)
+    res = pipeline.match(records, towers, region_n_value=args.region_n_value)
+    if not res.pairs:
+        print("no matched pairs to register")
+        return
+    pc_clouds, gim_clouds = [], []
+    for gi, pi in res.pairs:
+        t = towers[pi]
+        members = pts[labels == t.label]
+        e, n = wgs84_to_cgcs2000(records[gi].lng, records[gi].lat)
+        gim_center = np.array([float(e), float(n), t.center[2]])
+        pc_clouds.append((members - gim_center).astype(np.float32))
+        gim_clouds.append((members - t.center).astype(np.float32))
+    out = register_tower_pairs(pc_clouds, gim_clouds, iters=args.iters, device=args.device)
+    for (gi, pi), cloud, r in zip(res.pairs, pc_clouds, out):
+        print(
+            f"GIM[{gi}] <- PC[{pi}]: n={len(cloud)} "
+            f"t=({r['t'][0]:+.2f},{r['t'][1]:+.2f},{r['t'][2]:+.2f}) "
+            f"rmse={r['rmse']:.3f} inliers={r['inlier_frac']:.0%}"
+        )
+
+
+def cmd_stream_extract(args):
+    """Tower extraction over inputs of any size: tiles stream to the device
+    one ahead, each tile's towers merge by the two-tier quality dedup, and
+    the chunk capacity comes from host RAM and device memory (the resource
+    governor) unless --capacity pins it."""
+    import numpy as np
+
+    from pointcloudhookup_tpu_torch.config import (
+        ClusterParams,
+        ExtractParams,
+        TowerFilterParams,
+    )
+    from pointcloudhookup_tpu_torch.core.governor import budget
+    from pointcloudhookup_tpu_torch.core.streaming import stream_extract
+    from pointcloudhookup_tpu_torch.models.towers import towers_from_stats
+    from pointcloudhookup_tpu_torch.utils.validate import quality_dedup
+
+    b = budget(device=args.device, max_memory_percent=args.max_memory_percent,
+               hard_cap=args.capacity)
+    capacity = args.capacity or b.capacity
+    # the kernels block rows in 1,024-row granules; big fast tiles align to
+    # the compaction kernel's 32k block so the ground pre-cut can engage
+    if args.fast and capacity >= 131072:
+        capacity = -(-capacity // 32768) * 32768
+    else:
+        capacity = -(-capacity // 1024) * 1024
+    print(f"governor: {b.reason}" + (" (explicit --capacity)" if args.capacity else ""))
+    params = ExtractParams(
+        cluster=ClusterParams(eps=args.eps, min_points=args.min_points,
+                              method=args.cluster_method),
+        filters=TowerFilterParams(
+            aspect_ratio_threshold=args.aspect_ratio_threshold,
+            min_height=args.min_height,
+            max_width=args.max_width,
+            min_width=args.min_width,
+            duplicate_threshold=args.duplicate_threshold,
+        ),
+    )
+    results = stream_extract(args.las, capacity=capacity, params=params, fast=args.fast,
+                             precut_div=args.precut_div, device=args.device)
+    towers = []
+    for stats, meta in results:
+        towers.extend(towers_from_stats(stats, np.asarray(meta["origin"])))
+    towers = quality_dedup(towers, loose_radius=args.duplicate_threshold)
+    print(f"{len(towers)} towers across {len(results)} tiles (capacity {capacity:,})")
+    for i, t in enumerate(towers):
+        print(
+            f"tower_{i}: center=({t.center[0]:.2f},{t.center[1]:.2f},{t.center[2]:.2f}) "
+            f"h={t.height:.1f} w={t.width:.1f} north={t.north_angle:.1f} pts={t.num_points}"
+        )
 
 
 def cmd_run_all(args):
@@ -248,6 +362,13 @@ def main(argv=None):
         sp.add_argument("--html", help="write the highlighted review page")
         if corrected:
             sp.add_argument("--save", help="write the corrected .gim here")
+            sp.add_argument(
+                "--icp", action="store_true",
+                help="refine matched tower positions with batched ICP "
+                "against an idealized pylon frame before write-back",
+            )
+            sp.add_argument("--icp-iters", type=int, default=30)
+            sp.add_argument("--icp-max-corr-dist", type=float, default=2.0)
         sp.set_defaults(fn=lambda a, c=corrected: cmd_match(a, c))
 
     sp = sub.add_parser("reproject", help="EPSG:4547 -> WGS84 whole-LAS transform")
@@ -255,6 +376,33 @@ def main(argv=None):
     sp.add_argument("output")
     add_device(sp)
     sp.set_defaults(fn=cmd_reproject)
+
+    sp = sub.add_parser("register", help="batched ICP alignment of matched towers")
+    sp.add_argument("gim")
+    sp.add_argument("las")
+    add_extract_args(sp)
+    sp.add_argument("--region-n-value", type=float, default=25.0)
+    sp.add_argument("--iters", type=int, default=20)
+    sp.add_argument("--output-folder", default="output")
+    sp.set_defaults(fn=cmd_register)
+
+    sp = sub.add_parser(
+        "stream-extract",
+        help="streamed tower extraction over huge/multiple LAS files (auto-sized chunks)",
+    )
+    sp.add_argument("las", nargs="+")
+    add_extract_args(sp)
+    sp.add_argument("--capacity", type=int,
+                    help="points per device chunk (default: from host RAM and device memory)")
+    sp.add_argument("--max-memory-percent", type=float, default=30.0,
+                    help="host RAM share the streamer may stage into")
+    sp.add_argument("--fast", action="store_true",
+                    help="fused geometric front-end + sort-free OBB per tile (bench fast mode)")
+    sp.add_argument("--precut-div", type=int, default=4, dest="precut_div",
+                    help="fast mode: ground pre-cut capacity divisor "
+                         "(sort runs at capacity/DIV; 0 disables the "
+                         "pre-cut and its raw-z percentile estimate)")
+    sp.set_defaults(fn=cmd_stream_extract)
 
     sp = sub.add_parser("run-all", help="full workflow: compress -> extract -> correct -> save")
     sp.add_argument("las")

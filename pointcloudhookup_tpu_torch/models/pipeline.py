@@ -8,7 +8,8 @@ workflow with the same parameter names and defaults:
   reproject_las    EPSG:4547 -> WGS84 of every point (f32 deltas on ``device``)
   import_gim(...)  unpack a .gim and parse its tower records (host)
   match(...)       pair GIM towers with extracted towers (host f64)
-  correct(...)     match, then write the point-cloud positions back (host f64)
+  correct(...)     match, then write the point-cloud positions back (host f64;
+                   icp=True refines them by batched ICP on ``device``)
   save_gim(...)    rewrite the CBM BLHA lines and repack the .gim (host)
 
 ``extract`` -> ``extract_from_points`` routes a tile as the JAX package
@@ -668,16 +669,51 @@ def correct(
     height_threshold: float = 100.0,
     geoid: Optional[GeoidGrid] = None,
     icp: bool = False,
+    pc_clouds: Optional[Sequence] = None,
+    icp_iters: int = 30,
+    icp_max_corr_dist: float = 2.0,
+    device="cuda",
 ) -> MatchResult:
     """Match, then write the point-cloud derived coordinates back into the
-    GIM rows.  ``icp=True`` (the JAX package's ICP refinement of matched
-    towers) is not ported yet and raises NotImplementedError."""
-    if icp:
-        raise NotImplementedError(
-            "correct(icp=True) needs ops/registration.py and models/refine.py, "
-            "which are not ported yet (ROADMAP.md, module item 8)")
+    GIM rows.
+
+    icp=True needs ``pc_clouds``, each tower's member points in world
+    coordinates (aligned with ``pc_towers``): every matched tower's
+    position is refined by batched ICP on ``device`` against an idealised
+    pylon frame before the write-back (models/refine.py), its height from
+    the GIM tower's 杆塔高 where the record has one.  Refined pairs carry
+    their ICP rmse in ConvertedTower.icp_rmse."""
     converted = convert_pointcloud_towers(pc_towers, region_n_value, geoid)
     pairs = match_towers(gim_list, converted, distance_threshold, height_threshold)
+    if icp and pairs:
+        if pc_clouds is None:
+            raise ValueError("correct(icp=True) requires pc_clouds")
+        from pointcloudhookup_tpu_torch.models.refine import refine_tower_centers
+
+        tmpl = {}
+        for gi, pi in pairs:
+            try:
+                th = float(_tower_prop(gim_list[gi], "杆塔高", ""))
+            except (TypeError, ValueError):
+                th = None
+            if th:
+                tmpl[pi] = (th, None)
+        refined = refine_tower_centers(
+            pc_towers, pc_clouds, [pi for _, pi in pairs],
+            iters=icp_iters, max_corr_dist=icp_max_corr_dist,
+            template_params=tmpl or None, device=device,
+        )
+        for pi, r in refined.items():
+            e, n, h_ellip = (float(v) for v in r["center"])
+            lon, lat = (float(v) for v in tm_inverse(e, n))
+            h_ortho = float(ellipsoid_to_orthometric(lat, lon, h_ellip, geoid, region_n_value))
+            c = converted[pi]
+            c.converted_center = [lon, lat, h_ortho]
+            c.original_center = [e, n, h_ellip]
+            c.ellipsoid_height = h_ellip
+            c.orthometric_height = h_ortho
+            c.n_value = h_ellip - h_ortho
+            c.icp_rmse = float(r["rmse"])
     return _build_result(gim_list, converted, pairs, corrected=True)
 
 

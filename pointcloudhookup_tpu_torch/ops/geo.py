@@ -27,6 +27,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from pointcloudhookup_tpu_torch.ops.morton import fma_f32
+
 # CGCS2000 ellipsoid (the WGS84 semi-major axis; the flattening differs in
 # the 10th significant digit; PROJ treats the datum shift as null too)
 A_CGCS2000 = 6378137.0
@@ -188,12 +190,21 @@ class LocalTaylor2D:
     def eval_delta(self, dx, dy):
         """(dx, dy) -> (du, dv) output deltas relative to (u0, v0): in f64
         for numpy inputs; for tensors with the coefficients rounded to f32,
-        as the JAX module evaluates them on the device."""
+        as the JAX module evaluates them on the device.  On tensors each
+        product feeds the running sum through one fused multiply-add, as
+        XLA:CPU compiles the jitted sum: c1 dy is rounded, then
+        fma(c0, dx, .), then fma(c2, dx^2, .), fma(c3, dx dy, .) and
+        fma(c4, dy^2, .) with the squares and the cross product rounded."""
         if _is_tensor(dx):
-            cu = torch.tensor(self.cu, dtype=torch.float32, device=dx.device)
-            cv = torch.tensor(self.cv, dtype=torch.float32, device=dx.device)
-        else:
-            dx, dy, cu, cv = np.asarray(dx), np.asarray(dy), self.cu, self.cv
+            def delta(c):
+                c = torch.tensor(c, dtype=torch.float32, device=dx.device)
+                s = fma_f32(c[0], dx, c[1] * dy)
+                for ci, t in zip(c[2:], (dx * dx, dx * dy, dy * dy)):
+                    s = fma_f32(ci, t, s)
+                return s
+
+            return delta(self.cu), delta(self.cv)
+        dx, dy, cu, cv = np.asarray(dx), np.asarray(dy), self.cu, self.cv
         terms = [dx, dy, dx * dx, dx * dy, dy * dy]
         du = sum(c * t for c, t in zip(cu, terms))
         dv = sum(c * t for c, t in zip(cv, terms))

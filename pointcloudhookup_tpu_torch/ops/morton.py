@@ -74,13 +74,26 @@ def shift_code(hi, lo, shift3k: int):
 def fma_f32(a, b, c):
     """float32 a * b + c rounded ONCE, like the fused multiply-add that
     XLA:CPU makes of a product feeding a sum (its LLVM backend contracts
-    them), and like ``__fmaf_rn`` on CUDA.  Computed in float64: the
-    product is exact, and the result is exact wherever the sum needs at
-    most 53 bits.  The voxel-centre decodes always do: a is an integer or
-    half-integer below 2**21, b the float32 voxel size (24-bit mantissa)
-    and c an origin on the voxel lattice, so a * b + c is a multiple of
-    ulp(b) / 2 below 2**25 voxels."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
+    them), and like ``__fmaf_rn`` on CUDA.
+
+    On a CUDA tensor this is ``torch.addcmul``, whose elementwise CUDA
+    kernel contracts the product into the sum (one float32 fused
+    multiply-add, no float64 temporaries); ``chip_smoke.py`` and
+    ``tests/test_torch_cuda.py`` hold it bit for bit against the float64
+    form below, also where a * b nearly cancels c.  On the CPU the float64
+    form: the product is exact, and the result is exact wherever the sum
+    needs at most 53 bits.  The voxel-centre decodes always do: a is an
+    integer or half-integer below 2**21, b the float32 voxel size (24-bit
+    mantissa) and c an origin on the voxel lattice, so a * b + c is a
+    multiple of ulp(b) / 2 below 2**25 voxels."""
+    if a.is_cuda:
+        return torch.addcmul(c, a, b)
+    out = a.double() * b.double()
+    if out.shape == torch.broadcast_shapes(out.shape, c.shape):
+        out += c  # in place: c widens to float64 exactly, no float64 copy of it
+    else:
+        out = out + c.double()
+    return out.to(torch.float32)
 
 
 def interleave_tight(ix, iy, iz, bits: tuple):

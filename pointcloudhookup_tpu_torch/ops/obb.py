@@ -99,7 +99,7 @@ def _obb_from_accum(acc, k, num_angles):
     theta = best.to(f32) * step
     u_vec = torch.stack([torch.cos(theta), torch.sin(theta)], dim=1)
     v_vec = torch.stack([-torch.sin(theta), torch.cos(theta)], dim=1)
-    center_xy = cu[:, None] * u_vec + cv[:, None] * v_vec
+    center_xy = fma_f32(cu[:, None], u_vec, cv[:, None] * v_vec)
 
     # angle 0 projects onto (x, y): axis-aligned bounds are column 0
     return _finalize_obb_stats(
@@ -107,23 +107,35 @@ def _obb_from_accum(acc, k, num_angles):
         acc["ulo"][:, 0], acc["uhi"][:, 0], acc["vlo"][:, 0], acc["vhi"][:, 0],
         acc["zlo"], acc["zhi"], k,
         overflow=torch.zeros((), dtype=f32, device=dev),
+        theta_factors=(best.to(f32), step),
     )
+
+
+def north_angle_deg(theta):
+    """The reference's north angle (90 - degrees(theta)) mod 360, rounded as
+    XLA:CPU compiles it: one fused multiply-add by the f32 constant 180/pi,
+    then the remainder."""
+    rad2deg = torch.tensor(180.0 / math.pi, dtype=torch.float32, device=theta.device)
+    ninety = torch.tensor(90.0, dtype=torch.float32, device=theta.device)
+    return torch.remainder(fma_f32(-theta, rad2deg, ninety), 360.0)
 
 
 def _finalize_obb_stats(
     counts, alive, centroid, center_xy, theta, u_vec, v_vec, eu_b, ev_b,
-    x_lo, x_hi, y_lo, y_hi, z_lo, z_hi, k, overflow,
+    x_lo, x_hi, y_lo, y_hi, z_lo, z_hi, k, overflow, theta_factors=None,
 ):
     """Canonical long-axis swap, the reference's north-angle convention
-    ((90 - atan2) mod 360) and the stats dict."""
+    ((90 - atan2) mod 360) and the stats dict.  ``theta_factors`` = (a, b)
+    where theta = a * b: XLA:CPU fuses that product into the angle's add."""
     ez = z_hi - z_lo
     center = torch.cat([center_xy, ((z_hi + z_lo) * 0.5)[:, None]], dim=1)
     swap = ev_b > eu_b
     ex = torch.where(swap, ev_b, eu_b)
     ey = torch.where(swap, eu_b, ev_b)
     axis = torch.where(swap[:, None], v_vec, u_vec)
-    ang_deg = torch.rad2deg(torch.atan2(axis[:, 1], axis[:, 0]))
-    north = torch.remainder(90.0 - ang_deg, 360.0)
+    north = north_angle_deg(torch.atan2(axis[:, 1], axis[:, 0]))
+    quarter = swap * (math.pi / 2.0)
+    angle = theta + quarter if theta_factors is None else fma_f32(*theta_factors, quarter)
 
     zero3 = torch.zeros((k, 3), dtype=torch.float32, device=counts.device)
     aabb_min = torch.stack([x_lo, y_lo, z_lo], dim=1)
@@ -136,7 +148,7 @@ def _finalize_obb_stats(
         extent=torch.where(
             alive[:, None], torch.stack([ex, ey, ez], dim=1), zero3
         ),
-        angle=torch.where(alive, theta + swap * (math.pi / 2.0), 0.0),
+        angle=torch.where(alive, angle, 0.0),
         north_angle=torch.where(alive, north, 0.0),
         aabb_min=torch.where(alive[:, None], aabb_min, _BIG),
         aabb_max=torch.where(alive[:, None], aabb_max, -_BIG),
@@ -226,6 +238,17 @@ def _densify_runs(lab_s, payloads, k: int, p: int):
             counts_i > 0, overflow)
 
 
+def _cos_f32(x):
+    """float32 cos rounded from float64, on either device.  XLA:CPU calls
+    libm's ``cosf`` / ``sinf`` for these [K, A] angles; those differ from
+    this rounding in ~1 % of arguments, torch's float32 cos in ~5 %."""
+    return torch.cos(x.double()).to(torch.float32)
+
+
+def _sin_f32(x):
+    return torch.sin(x.double()).to(torch.float32)
+
+
 def _obb_from_members(gx, gy, gz, member, counts, alive, overflow, k: int, *,
                       num_angles: int, angle_tile: int):
     """Stats from dense [K, P] members: centroids, then the min-area XY
@@ -248,10 +271,11 @@ def _obb_from_members(gx, gy, gz, member, counts, alive, overflow, k: int, *,
     mk = member[:, :, None]
 
     def rect_stats(angles):  # [K, A] per cluster -> extents and sums
-        cos_a = torch.cos(angles)[:, None, :]
-        sin_a = torch.sin(angles)[:, None, :]
-        pu = gx[:, :, None] * cos_a + gy[:, :, None] * sin_a  # [K, P, A]
-        pv = -gx[:, :, None] * sin_a + gy[:, :, None] * cos_a
+        cos_a = _cos_f32(angles)[:, None, :]
+        sin_a = _sin_f32(angles)[:, None, :]
+        x, y = gx[:, :, None], gy[:, :, None]
+        pu = fma_f32(x, cos_a, y * sin_a)  # [K, P, A]
+        pv = fma_f32(y, cos_a, -(x * sin_a))
         pu_hi = torch.where(mk, pu, -_BIG).amax(dim=1)
         pu_lo = torch.where(mk, pu, _BIG).amin(dim=1)
         pv_hi = torch.where(mk, pv, -_BIG).amax(dim=1)
@@ -261,21 +285,24 @@ def _obb_from_members(gx, gy, gz, member, counts, alive, overflow, k: int, *,
     step_t = torch.tensor(step, dtype=f32, device=dev)
     a1 = torch.arange(coarse, dtype=f32, device=dev) * step_t
     eu1, ev1, _, _ = rect_stats(a1[None, :].expand(k, coarse))
-    theta1 = torch.argmin(eu1 * ev1, dim=1).to(f32) * step_t
+    best1 = torch.argmin(eu1 * ev1, dim=1).to(f32)
     half = refine // 2
     deltas = (torch.arange(refine, dtype=f32, device=dev) - half) * torch.tensor(
         step / half, dtype=f32, device=dev)
-    a2 = theta1[:, None] + deltas[None, :]  # [K, refine]
+    # XLA:CPU rounds best1 * step once for the 17 angles it projects on,
+    # but fuses it into the add where it gathers the winning angle
+    a2 = (best1 * step_t)[:, None] + deltas[None, :]  # [K, refine]
     eu, ev, su, sv = rect_stats(a2)
     best = torch.argmin(eu * ev, dim=1)
     eu_b = eu[ar, best]
     ev_b = ev[ar, best]
     cu = su[ar, best] * 0.5
     cv = sv[ar, best] * 0.5
-    theta = a2[ar, best]
-    u_vec = torch.stack([torch.cos(theta), torch.sin(theta)], dim=1)
-    v_vec = torch.stack([-torch.sin(theta), torch.cos(theta)], dim=1)
-    center_xy = cu[:, None] * u_vec + cv[:, None] * v_vec
+    theta = fma_f32(best1, step_t, deltas[best])
+    cos_t, sin_t = _cos_f32(theta), _sin_f32(theta)
+    u_vec = torch.stack([cos_t, sin_t], dim=1)
+    v_vec = torch.stack([-sin_t, cos_t], dim=1)
+    center_xy = fma_f32(cu[:, None], u_vec, cv[:, None] * v_vec)
 
     # axis-aligned bounds over the member tensor (z is the height extent)
     def lo_hi(g):

@@ -6,6 +6,7 @@ match tables' CSV (``MatchResult.to_csv``, pandas in the JAX package, the
 csv module here) and the saved GIM for the same corrected rows."""
 
 import json
+import re
 import os
 import shutil
 
@@ -227,8 +228,8 @@ def test_save_gim_matches_jax_bytes(workspace, tmp_path):
 
 def test_match_and_correct_match_jax(workspace):
     """match()/correct() on the same towers and records give the JAX
-    package's pairs and tables; correct(icp=True) is not ported and says
-    so."""
+    package's pairs and tables; correct(icp=True) without the member clouds
+    raises as the JAX package's does."""
     tmp, las, gim, centers = workspace
     recs, _, _ = pipeline.import_gim(gim, str(tmp / "mc_t"))
     jrecs, _, _ = jpipe.import_gim(gim, str(tmp / "mc_j"))
@@ -237,8 +238,10 @@ def test_match_and_correct_match_jax(workspace):
         got, ref = fn(recs, towers), jfn(jrecs, towers)
         assert got.pairs == ref.pairs and len(got.pairs) == len(centers)
         assert (got.gim_rows, got.pc_rows) == (ref.gim_rows, ref.pc_rows)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="pc_clouds"):
         pipeline.correct(recs, towers, icp=True)
+    with pytest.raises(ValueError, match="pc_clouds"):
+        jpipe.correct(jrecs, towers, icp=True)
 
 
 def test_cli_reproject(workspace, capsys, tmp_path):
@@ -263,3 +266,104 @@ def test_cli_reproject(workspace, capsys, tmp_path):
     assert np.abs(xyz - rxyz).max() <= 1.5e-7
     jlon, _ = jtm_inverse(src[:, 0], src[:, 1], xp=np)
     np.testing.assert_array_equal(lon, jlon)
+
+
+def test_cli_reproject_matches_jax_bytes(workspace, tmp_path):
+    """The f32 deltas round as XLA:CPU's fused multiply-adds, so the
+    reprojected LAS is the JAX package's to the byte."""
+    tmp, las, gim, centers = workspace
+    out, ref = str(tmp_path / "deg.las"), str(tmp_path / "ref.las")
+    main(["reproject", las, out] + CPU)
+    jpipe.reproject_las(las, ref)
+    with open(out, "rb") as f, open(ref, "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_extract_table_matches_jax(workspace, tmp_path):
+    """``extract --excel`` on the corridor: the north angle rounds as the
+    jitted JAX expression, so the towers table (csv) is the JAX package's
+    field for field."""
+    tmp, las, gim, centers = workspace
+    out, ref = str(tmp_path / "t.csv"), str(tmp_path / "ref.csv")
+    main(["extract", las, "--eps", "5", "--min-points", "30", "--excel", out] + CPU)
+    jmain(["extract", las, "--eps", "5", "--min-points", "30", "--excel", ref])
+    with open(out, encoding="utf-8") as f, open(ref, encoding="utf-8") as g:
+        got, want = f.read(), g.read()
+    assert len(got.splitlines()) == len(centers) + 1
+    assert got == want
+
+
+_NUM = re.compile(r"[-+]?\d+\.\d+|[-+]?\d+")
+
+
+def _same_lines(got, ref, tol):
+    """The same lines with every number within ``tol`` of the reference's
+    (printed to 2 or 3 decimals, so a last digit may round either way)."""
+    assert len(got) == len(ref), (got, ref)
+    for g, r in zip(got, ref):
+        assert _NUM.sub("#", g) == _NUM.sub("#", r), (g, r)
+        for a, b in zip(_NUM.findall(g), _NUM.findall(r)):
+            assert abs(float(a) - float(b)) <= tol, (g, r)
+
+
+def test_cli_correct_icp_matches_jax(workspace, capsys, tmp_path):
+    """``correct --icp``: the same pairs and ICP rmse lines as the JAX CLI
+    (rmse printed to 1 mm, equal within 1e-3 m), and a saved GIM."""
+    tmp, las, gim, centers = workspace
+    args = ["correct", gim, las, "--eps", "5", "--min-points", "30", "--icp"]
+    main(args + ["--output-folder", str(tmp_path / "t"), "--save", str(tmp_path / "o.gim")] + CPU)
+    got = capsys.readouterr().out.splitlines()
+    jmain(args + ["--output-folder", str(tmp_path / "j")])
+    ref = capsys.readouterr().out.splitlines()
+    def pick(lines):
+        return [ln for ln in lines
+                if ln.startswith(("extraction complete", "  ")) or ln.endswith("pairs matched")]
+
+    got_l, ref_l = pick(got), pick(ref)
+    assert f"{len(centers)} pairs matched" in got_l
+    assert sum("icp rmse" in ln for ln in got_l) == len(centers)
+    _same_lines(got_l, ref_l, 1.1e-3)
+    assert "saved" in got
+    recs, _, _ = pipeline.import_gim(str(tmp_path / "o.gim"), str(tmp_path / "re"))
+    assert len(recs) == len(centers)
+
+
+def test_cli_register_matches_jax(workspace, capsys, tmp_path):
+    """``register``: one transform a matched tower, the same as the JAX
+    CLI's (t printed to 1 cm, rmse to 1 mm).  Each cloud is aligned onto
+    itself, an exact fit whose rmse is rounding noise: where the JAX CLI
+    prints nan (the root of a negative noise sum), the port prints its
+    clamped root, below 0.03 m (tests/test_torch_registration.py)."""
+    tmp, las, gim, centers = workspace
+    args = ["register", gim, las, "--eps", "5", "--min-points", "30", "--iters", "10"]
+    main(args + ["--output-folder", str(tmp_path / "t")] + CPU)
+    got = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("GIM[")]
+    jmain(args + ["--output-folder", str(tmp_path / "j")])
+    ref = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("GIM[")]
+    assert len(got) == len(centers)
+    rmse = re.compile(r"rmse=(\S+)")
+    for g, r in zip(got, ref):
+        a, b = rmse.search(g).group(1), rmse.search(r).group(1)
+        assert float(a) < 0.03 if b == "nan" else abs(float(a) - float(b)) <= 1.1e-3
+    _same_lines([rmse.sub("", g) for g in got], [rmse.sub("", r) for r in ref], 1.1e-2)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["modular", "fast"])
+def test_cli_stream_extract_matches_jax(workspace, capsys, tmp_path, fast):
+    """``stream-extract`` over two LAS tiles: the same towers after the
+    cross-tile quality dedup as the JAX CLI."""
+    tmp, las, gim, centers = workspace
+    pts = read_las(las).xyz()
+    tiles = []
+    for i, shift in enumerate(((0.0, 0.0, 0.0), (600.0, 0.0, 2.0))):
+        tiles.append(str(tmp_path / f"tile{i}.las"))
+        write_las(make_las(pts + shift, scales=[0.01, 0.01, 0.01]), tiles[-1])
+    args = ["stream-extract", *tiles, "--eps", "5", "--min-points", "30",
+            "--capacity", "8192"] + (["--fast"] if fast else [])
+    main(args + CPU)
+    got = capsys.readouterr().out.splitlines()
+    jmain(args)
+    ref = capsys.readouterr().out.splitlines()
+    assert got[0].startswith("governor: ") and got[0].endswith("(explicit --capacity)")
+    assert got[1] == ref[1] == f"{2 * len(centers)} towers across 2 tiles (capacity 8,192)"
+    _same_lines(got[2:], ref[2:], 1.1e-2)

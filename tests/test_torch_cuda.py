@@ -10,6 +10,8 @@ Integer outputs, pop and the OBB counts and extremes must be identical
 (one angle table, the same per-row rounding); OBB sums agree to f32
 summation order (atomics add in run order)."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1319,3 +1321,179 @@ def test_voxel_downsample_cuda_matches_cpu(cuda, chunk_size, voxel_size):
     bound = ((counts[:, None] * 2.0**-23 + 2.0**-22) * (np.abs(ref_c) + voxel_size))
     assert (np.abs(got_c - ref_c) <= bound).all()
     assert (n(got_xyz)[~n(ref_mask)] == 0).all()
+
+
+# ------------------------------------------------------------------
+# Registration and tile streaming: the card against the CPU.
+
+def _tower_cloud(rng, n):
+    t_param = rng.uniform(0, 1, n)
+    half = 6.0 * (1 - 0.7 * t_param)
+    return np.column_stack([rng.uniform(-1, 1, n) * half, rng.uniform(-1, 1, n) * half,
+                            t_param * 35.0]).astype(np.float32)
+
+
+def _icp_batch(seed=0, b=6, n=512):
+    rng = np.random.default_rng(seed)
+    src = np.zeros((b, n, 3), np.float32)
+    dst = np.zeros((b, n, 3), np.float32)
+    sm = np.zeros((b, n), bool)
+    dm = np.zeros((b, n), bool)
+    for i in range(b):
+        a, c = int(rng.integers(64, n + 1)), int(rng.integers(64, n + 1))
+        cloud = _tower_cloud(rng, max(a, c))
+        ang = rng.uniform(-0.15, 0.15)
+        rot = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0],
+                        [0, 0, 1]])
+        src[i, :a], sm[i, :a] = cloud[:a], True
+        dst[i, :c], dm[i, :c] = cloud[:c] @ rot.T + rng.uniform(-1, 1, 3), True
+    return src, sm, dst, dm
+
+
+@pytest.mark.cuda
+def test_nearest_cuda_bit_equal_to_cpu_and_tiled(cuda, monkeypatch):
+    from pointcloudhookup_tpu_torch.ops import registration as reg
+
+    src, sm, dst, dm = _icp_batch()
+    ref_i, ref_d = reg._nearest(t(src), t(sm), t(dst), t(dm))
+    args = [t(a, cuda) for a in (src, sm, dst, dm)]
+    row_elems = dst.shape[0] * dst.shape[1]
+    for rows in (None, 7, 100):
+        if rows is not None:  # tiles of that many source rows
+            monkeypatch.setattr(reg, "NEAREST_TILE_ELEMS", rows * row_elems)
+        i, d = reg._nearest(*args)
+        assert torch.equal(i.cpu(), ref_i) and torch.equal(d.cpu(), ref_d)
+
+
+@pytest.mark.cuda
+def test_fma_f32_cuda_bit_equal_to_cpu(cuda):
+    """fma_f32 on the card (torch.addcmul) gives the bits of its float64
+    form on the CPU, also where a * b nearly cancels c."""
+    from pointcloudhookup_tpu_torch.ops.morton import fma_f32
+
+    rng = np.random.default_rng(3)
+    a = (rng.standard_normal(1 << 20) * 100).astype(np.float32)
+    b = rng.standard_normal(1 << 20).astype(np.float32)
+    for c in ((rng.standard_normal(1 << 20) * 50).astype(np.float32),
+              -(a.astype(np.float64) * b).astype(np.float32)):
+        ref = fma_f32(t(a), t(b), t(c))
+        assert torch.equal(fma_f32(t(a, cuda), t(b, cuda), t(c, cuda)).cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_batched_icp_cuda_matches_cpu(cuda):
+    """R within 1e-4, t within 1e-3 m, rmse within 1e-4 m of the CPU run
+    (both below 0.03 m for an exact fit, whose rmse is rounding noise):
+    d^2 and every correspondence are bit-equal, the Kabsch sums differ in
+    order and torch.linalg.svd's U and V in sign."""
+    from pointcloudhookup_tpu_torch.ops import registration as reg
+
+    src, sm, dst, dm = _icp_batch(1)
+    for radius in (float("inf"), 0.5):
+        ref = reg.batched_icp(t(src), t(sm), t(dst), t(dm), iters=15, max_corr_dist=radius)
+        got = reg.batched_icp(*(t(a, cuda) for a in (src, sm, dst, dm)), iters=15,
+                              max_corr_dist=radius)
+        np.testing.assert_allclose(n(got["R"]), n(ref["R"]), rtol=0, atol=1e-4)
+        np.testing.assert_allclose(n(got["t"]), n(ref["t"]), rtol=0, atol=1e-3)
+        # an exact fit's rmse is the root of rounding noise: below 0.03 m on both
+        exact = n(ref["rmse"]) < 0.03
+        assert (n(got["rmse"])[exact] < 0.03).all()
+        np.testing.assert_allclose(n(got["rmse"])[~exact], n(ref["rmse"])[~exact], rtol=0,
+                                   atol=1e-4)
+        np.testing.assert_allclose(n(got["inlier_frac"]), n(ref["inlier_frac"]), rtol=0,
+                                   atol=1.0 / 64)
+
+
+def _stub_corridor(seed=11):
+    """Three towers with a one-sided conductor stub each (config 4's
+    gim_scenario corridor), in a local frame."""
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
+
+    rng = np.random.default_rng(seed)
+    pts, centers = synthetic_corridor(
+        rng, n_ground=4000, n_veg=800, pts_per_tower=500,
+        towers=((0.0, 0.0), (160.0, 60.0), (-170.0, -80.0)), tower_height=35.0,
+        extent=300.0, origin=(500_000.0, 3_120_000.0, 80.0))
+    stubs = []
+    for c in centers:
+        s = rng.uniform(0, 1, 120)
+        stubs.append(np.column_stack([c[0] + 1.0 + s * 7.0, c[1] + rng.normal(0, 0.2, 120),
+                                      c[2] + 35.0 / 2 - 2.0 - 3.0 * s]))
+    return np.vstack([pts] + stubs), centers
+
+
+@pytest.mark.cuda
+def test_refine_tower_centers_cuda_matches_cpu(cuda):
+    from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams, GroundParams
+    from pointcloudhookup_tpu_torch.models import pipeline
+    from pointcloudhookup_tpu_torch.models.refine import refine_tower_centers
+
+    pts, centers = _stub_corridor()
+    params = ExtractParams(ground=GroundParams(min_points_after=100),
+                           cluster=ClusterParams(eps=5.0, min_points=30),
+                           max_clusters=32, obb_angles=128)
+    towers, stats, _ = pipeline.extract_from_points(pts, params, capacity=8192, device="cpu")
+    lab = stats["labels"][: len(pts)]
+    clouds = [pts[lab == tw.label] for tw in towers]
+    idx = list(range(len(towers)))
+    tmpl = {i: (35.0, None) for i in idx}
+    ref = refine_tower_centers(towers, clouds, idx, template_params=tmpl, device="cpu")
+    got = refine_tower_centers(towers, clouds, idx, template_params=tmpl, device=cuda)
+    assert len(got) == len(ref) == len(centers)
+    for i in ref:
+        np.testing.assert_allclose(got[i]["center"], ref[i]["center"], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["u16", "f32"])
+@pytest.mark.parametrize("fast", [False, True], ids=["modular", "fast"])
+def test_stream_extract_cuda_matches_cpu(cuda, fast, wire):
+    from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams
+    from pointcloudhookup_tpu_torch.core.streaming import TileStreamer, stream_extract
+
+    pts, centers = _stub_corridor(5)
+    tiles = [pts, pts + [400.0, 0.0, 1.0]]
+    for (x, m, _), (rx, rm, _) in zip(
+            TileStreamer(tiles, capacity=8192, wire=wire, device=cuda),
+            TileStreamer(tiles, capacity=8192, wire=wire, device="cpu")):
+        assert torch.equal(x.cpu(), rx) and torch.equal(m.cpu(), rm)
+    params = ExtractParams(cluster=ClusterParams(eps=5.0, min_points=30))
+    kw = dict(capacity=8192, params=params, wire=wire, fast=fast, fetch_labels=True)
+    got = stream_extract(tiles, device=cuda, **kw)
+    ref = stream_extract(tiles, device="cpu", **kw)
+    for (g, _), (r, _) in zip(got, ref):
+        acc = r["accepted"]
+        assert acc.sum() == len(centers)
+        for key in ("accepted", "labels", "count"):
+            assert np.array_equal(n(g[key]) if torch.is_tensor(g[key]) else g[key],
+                                  r[key]), key
+        assert np.abs(g["center"][acc] - r["center"][acc]).max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_streamed_copy_overlaps_a_running_step(cuda):
+    """The producer uploads the next chunk on its own CUDA stream while the
+    consumer's stream is still busy: the chunk's upload event completes
+    while a long kernel enqueued before it still runs on the consumer's
+    stream, and the streamed data are the CPU's."""
+    from pointcloudhookup_tpu_torch.core.streaming import TileStreamer
+
+    rng = np.random.default_rng(3)
+    tiles = [rng.uniform(0, 500, (200_000, 3)) for _ in range(3)]
+    it = iter(TileStreamer(tiles, capacity=262_144, wire="u16", device=cuda, prefetch=1))
+    x0, _, _ = next(it)
+    busy_done = torch.cuda.Event()
+    torch.cuda._sleep(int(3e9))  # ~1.5 s of spinning on the consumer's stream
+    x0.sum()  # a step on the chunk in hand, queued behind the spin
+    busy_done.record()
+    _, _, meta1 = next(it)
+    x2, m2, meta2 = next(it)  # prepared and uploaded while the stream spins
+    deadline = time.perf_counter() + 1.0
+    while not meta2["uploaded"].query() and time.perf_counter() < deadline:
+        time.sleep(0.001)
+    assert meta2["uploaded"].query(), "the upload did not finish within 1 s"
+    assert not busy_done.query(), "the consumer's stream finished first: no overlap"
+    torch.cuda.synchronize()
+    ref = list(TileStreamer(tiles, capacity=262_144, wire="u16", device="cpu"))[2]
+    assert torch.equal(x2.cpu(), ref[0]) and torch.equal(m2.cpu(), ref[1])
+    assert list(it) == []

@@ -20,6 +20,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -135,7 +136,8 @@ def _jax_accum_twin(run, jax_out):
         jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(lab), jnp.asarray(mn),
         max_clusters=k, num_angles=p.obb_angles, interpret=True,
     )
-    stats = jax_obb_from_accum(acc, k, p.obb_angles)
+    # jitted, as inside the JAX package's fused_extract_step
+    stats = jax.jit(jax_obb_from_accum, static_argnums=(1, 2))(acc, k, p.obb_angles)
     stats["accepted"] = jax_filter_and_dedup(stats, p.filters)
     return {key: np.asarray(v) for key, v in stats.items()}
 

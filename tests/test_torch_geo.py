@@ -8,6 +8,7 @@ projection within 1e-9 deg (~0.1 mm) of the numpy one; the torch f32
 float32 haversine, geoid interpolation and greedy matching against the
 JAX functions (``xp=jnp``, float32) within float32 rounding."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -99,8 +100,10 @@ def test_local_taylor_f32_delta_within_2e8_deg():
     lon_ref, lat_ref = tgeo.tm_inverse(e0 + de, n0 + dn)
     np.testing.assert_allclose(lt.u0 + dlon.double().numpy(), lon_ref, rtol=0, atol=2e-8)
     np.testing.assert_allclose(lt.v0 + dlat.double().numpy(), lat_ref, rtol=0, atol=2e-8)
-    jlon, jlat = jgeo.local_cgcs2000_to_wgs84(e0, n0).eval_delta(
-        jnp.asarray(de, jnp.float32), jnp.asarray(dn, jnp.float32), jnp)
+    jlt = jgeo.local_cgcs2000_to_wgs84(e0, n0)
+    # jitted, as the JAX package's reproject_las evaluates it
+    jlon, jlat = jax.jit(lambda a, b: jlt.eval_delta(a, b, jnp))(
+        jnp.asarray(de, jnp.float32), jnp.asarray(dn, jnp.float32))
     np.testing.assert_allclose(dlon.numpy(), np.asarray(jlon), rtol=0, atol=1e-9)
     np.testing.assert_allclose(dlat.numpy(), np.asarray(jlat), rtol=0, atol=1e-9)
 
@@ -192,3 +195,36 @@ def test_greedy_match_arrays_matches_jax():
     assert tgot[1].dtype == torch.int32
     m = tgot[0].numpy()
     np.testing.assert_array_equal(tgot[1].numpy()[m], np.asarray(jref[1])[m])
+
+
+def test_eval_delta_bit_equal_to_jitted_jax():
+    """On tensors the f32 deltas round as XLA:CPU's fused multiply-adds:
+    bit-equal to the jitted JAX expansion over 200,000 (dx, dy) in +-2 km."""
+    e0, n0 = (float(v) for v in tgeo.tm_forward(113.5, 28.2))
+    lt, jlt = tgeo.local_cgcs2000_to_wgs84(e0, n0), jgeo.local_cgcs2000_to_wgs84(e0, n0)
+    rng = np.random.default_rng(0)
+    dx, dy = rng.uniform(-2000, 2000, (2, 200_000)).astype(np.float32)
+    ref = jax.jit(lambda a, b: jlt.eval_delta(a, b, jnp))(dx, dy)
+    got = lt.eval_delta(torch.from_numpy(dx), torch.from_numpy(dy))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_reproject_las_bytes_equal_jax_on_a_2km_tile(tmp_path):
+    """100,000 points over +-2 km at 0.001 m: the reprojected LAS (1e-7 deg
+    scale) is the JAX package's to the byte."""
+    from pointcloudhookup_tpu.models.pipeline import reproject_las as jreproject
+    from pointcloudhookup_tpu_torch.io.las import make_las, write_las
+    from pointcloudhookup_tpu_torch.models.pipeline import reproject_las
+
+    e0, n0 = (float(v) for v in tgeo.tm_forward(113.5, 28.2))
+    rng = np.random.default_rng(4)
+    pts = np.column_stack([e0 + rng.uniform(-2000, 2000, 100_000),
+                           n0 + rng.uniform(-2000, 2000, 100_000),
+                           rng.uniform(50, 120, 100_000)])
+    src, out, ref = (str(tmp_path / f) for f in ("src.las", "out.las", "ref.las"))
+    write_las(make_las(pts, scales=[0.001] * 3), src)
+    reproject_las(src, out, device="cpu")
+    jreproject(src, ref)
+    with open(out, "rb") as f, open(ref, "rb") as g:
+        assert f.read() == g.read()
