@@ -71,6 +71,16 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      bytes a point of one fused and one modular 4M step against the
      governor's constant; (e) the card vs the CPU on streamed chunks (both
      wires, fast and modular) and on config 4's gim_scenario;
+ 11. the sharded step (parallel/sharded.py, modular with grid, fast and
+     exact) through parallel.launch.run_ranks on a 4,194,304-point corridor
+     sorted by x into four slabs with towers on the slab edges: 4 ranks
+     sharing the card over gloo against 1 rank over NCCL (the same towers,
+     centroids within 1 cm, exact-mode box centres too), every rank's merged
+     dict rank 0's, planted towers found, no overflow, each rank's halo
+     selections as the corridor gives them; 4 ranks on the CPU against the
+     card at 4 x 32,768 rows; wall, collective and device ms, halo rows,
+     member counts of 4 ranks and 1; rank 0's kernel calls of each mode go
+     to phase 3;
   3. runs each kernel and its plain PyTorch version on the same device
      tensors at the shapes the paths give it, requires agreement (integer
      outputs, pop, counts and extremes identical; OBB sums within the f32
@@ -97,12 +107,13 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      modular path's calls of phase 8 (cluster_converge on dbscan's
      cell-sorted rows, timed also on the same rows in input order, and on
      the grid table; segscan and compactrows at grid_dbscan's calls,
-     segscan also with the cut rows as one segment for comparison), and
-     segscan at compress's call of phase 9 (a) (f32 [N, 4], reverse).
+     segscan also with the cut rows as one segment for comparison),
+     segscan at compress's call of phase 9 (a) (f32 [N, 4], reverse), and
+     every kernel call of rank 0's sharded step in each mode (phase 11).
 
 Launch counts are reset just before each path's run (1, 4, 5, each mode of
-7, 8 (a)-(c), 9 (a), 10 (a) and a fast and a modular tile of 10 (d)) and
-read just after.  Prints the card's name and power limit, one JSON line of
+7, 8 (a)-(c), 9 (a), 10 (a), a fast and a modular tile of 10 (d), and in
+rank 0 one sharded step of each mode of 11) and read just after.  Prints the card's name and power limit, one JSON line of
 per-kernel results, and as its last line {"ok": true, "device": {...}}.
 Any failure raises: the exit code is non-zero and the last line is not
 printed.  It imports nothing of JAX or of the JAX package.
@@ -330,10 +341,11 @@ def recording(module, attr, calls):
 @contextlib.contextmanager
 def kernel_calls(calls):
     """Append (wrapper name, args, kwargs) for every call of the wrappers of
-    compactrows, segscan, cluster_converge and obb_accumulate made while
-    the block runs, under every name a module of the port binds them to
-    (``from ... import`` makes copies of the binding); the calls go
-    through.  A wrapper that calls another records both."""
+    compactrows, segscan, neighbor, cluster_converge, obb_accum (raw
+    coordinates) and obb_accumulate made while the block runs, under every
+    name a module of the port binds them to (``from ... import`` makes
+    copies of the binding); the calls go through.  A wrapper that calls
+    another records both."""
     # the modules that bind them, imported first: a later import would bind
     # the unwrapped functions
     from pointcloudhookup_tpu_torch.core import streaming  # noqa: F401
@@ -342,12 +354,15 @@ def kernel_calls(calls):
         cluster, cluster_grid, frontend_exact, frontend_fused, obb, segments, voxel,
     )
     from pointcloudhookup_tpu_torch.ops.kernels import (
-        cluster_converge, compactrows, obb_accum, segscan,
+        cluster_converge, compactrows, neighbor, obb_accum, segscan,
     )
+    from pointcloudhookup_tpu_torch.parallel import sharded  # noqa: F401
     wrappers = {fn: name for name, fn in (
         ("compactrows", compactrows.compact_rows_multi),
         ("segscan", segscan.segmented_scan),
+        ("neighbor", neighbor.neighbor_reduce),
         ("cluster_converge", cluster_converge.cluster_cells),
+        ("obb_accum", obb_accum.obb_accumulate_xyz),
         ("obb_accumulate", obb_accum.obb_accumulate),
     )}
 
@@ -1282,6 +1297,370 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
     return results, launches, stream_calls
 
 
+# phase 11: the sharded step (parallel/sharded.py) over torch.distributed
+SHARDED_RANKS = 4
+SHARDED_SMALL = 32_768  # rows a rank in the card-vs-CPU check
+SHARDED_MODES = ("modular", "fast", "exact")
+SHARDED_REPS = 3
+# dryrun_multichip's gate, n ranks against one: box centres in exact mode
+# (one global cell grid); member centroids in every mode, plus what f32
+# summation order may move them.  The modular and fast steps anchor each
+# rank's cell grid at its own minimum (the JAX package's design), so a tower
+# may adopt other vegetation cells there: their box centres are reported.
+# Member counts of 4 ranks and 1 are reported, not gated: the JAX package's
+# own 4-device and 1-device runs differ in them in every mode (per-rank
+# anchors; ghosts counted twice in fast mode; ghost cells beyond eps from
+# the slab unsure of their core state), and the port's 4 ranks hold the
+# JAX package's 4 devices on this script's small corridor
+# (tests/test_torch_parallel.py::test_phase11_corridor_matches_jax)
+SHARDED_CENTRE_TOL_M = 0.01
+# the kernels of one rank's step, by mode (grid_dbscan on the modular step;
+# compactrows also selects the halo rows)
+SHARDED_PATH = {
+    "modular": ("compactrows", "segscan", "cluster_converge", "obb_accum"),
+    "fast": FAST_PATH,
+    "exact": EXACT_PATH,
+}
+
+
+def sharded_corridor(n: int, seed: int):
+    """n points in bench.py's shares (80 % ground, 12 % vegetation, 8 % in
+    23 towers), 4 km square, sorted by x: the towers stand every 1000/6 m
+    in x, so the tower set is symmetric about x = 0 and x = +-1000 m, and
+    each x-quantile at 1/4, 1/2 and 3/4 of the rows (the edges of four
+    equal slabs) falls inside a tower.  Returns (points f64[n, 3], planted
+    centres f64[23, 3])."""
+    from pointcloudhookup_tpu_torch.io.synthetic import synthetic_corridor
+
+    xs = np.arange(-11, 12) * (1000.0 / 6.0)
+    pts, centers = synthetic_corridor(
+        np.random.default_rng(seed), n_ground=int(n * 0.80), n_veg=int(n * 0.12),
+        towers=tuple(zip(xs, 80.0 * np.sin(xs / 500.0))),
+        pts_per_tower=(n - int(n * 0.92)) // len(xs) + 1, extent=2000.0, n_line=0,
+    )
+    pts = pts[:n]
+    return pts[np.argsort(pts[:, 0], kind="stable")], centers
+
+
+def to_host(obj):
+    """Tensors (nested in tuples, lists, dicts) as numpy arrays: what a rank
+    sends back to the parent (torch's own pickling of CPU tensors would
+    share memory with a process that is about to exit)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_host(v) for v in obj)
+    return obj
+
+
+def to_device(obj, dev):
+    """to_host's inverse, onto dev."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj).to(dev)
+    if isinstance(obj, dict):
+        return {k: to_device(v, dev) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_device(v, dev) for v in obj)
+    return obj
+
+
+def sharded_rank(device, runs, params, capture):
+    """Phase 11's rank (run by parallel.launch.run_ranks): for each run
+    (label -> (xyz, mask, exact cell bits, reps), this rank's shard) and
+    each mode, build this rank's step and run it with every kernel's plain
+    version made to raise (on a card): a warm-up whose merged dict is
+    returned; with reps > 0 also reps timed steps (wall ms), one with the
+    group timing its collectives (calls and ms by collective), one more
+    pair of which rank 0 profiles the second (device busy) and one whose
+    kernel launches rank 0 counts and, with capture, whose kernel calls it
+    records; every rank also returns the rows that its halo selections of
+    that step chose, [to the right, to the left] (what it sends its
+    neighbours).  Every rank runs the same steps: the collectives pair up."""
+    from pointcloudhookup_tpu_torch.parallel import sharded
+    from pointcloudhookup_tpu_torch.parallel.sharded import make_sharded_extract, tile_mesh
+
+    group = tile_mesh()
+    counters = {name: (importlib.import_module(f"pointcloudhookup_tpu_torch.ops.kernels.{m}"),
+                       attr) for name, (_, _, (m, attr)) in KERNELS.items()}
+    modules = sorted({mod for mod, _ in counters.values()}, key=lambda m: m.__name__)
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    out = {}
+    for label, (xyz_np, mask_np, bits, reps) in runs.items():
+        xyz = torch.from_numpy(xyz_np).to(device)
+        mask = torch.from_numpy(mask_np).to(device)
+        for mode in SHARDED_MODES:
+            step = make_sharded_extract(group, params, mode=mode, exact_cell_bits=bits)
+            res = {}
+            guard = no_plain_versions(modules) if on_card else contextlib.nullcontext()
+            with guard:
+                _, merged = step(xyz, mask)
+                res["merged"] = to_host(merged)
+                if reps:
+                    walls = []
+                    for _ in range(reps):
+                        sync()
+                        t0 = time.perf_counter()
+                        step(xyz, mask)
+                        sync()
+                        walls.append((time.perf_counter() - t0) * 1e3)
+                    res["wall_ms"] = walls
+                    group.reset()
+                    group.timing = True
+                    step(xyz, mask)
+                    group.timing = False
+                    res["collective_calls"] = dict(group.calls)
+                    res["collective_ms"] = dict(group.ms)
+                    if group.rank == 0 and on_card:
+                        prof = profile_iteration(lambda: step(xyz, mask))
+                        res["device_ms"] = prof["device_ms"]
+                        res["profile_wall_ms"] = prof["wall_ms"]
+                    else:
+                        step(xyz, mask)
+                        step(xyz, mask)
+                    for mod, attr in counters.values():
+                        setattr(mod, attr, 0)
+                    calls, halo = [], []
+                    with kernel_calls(calls) if capture and group.rank == 0 \
+                            else contextlib.nullcontext():
+                        # inside kernel_calls, which rebinds the same name
+                        with recording(sharded, "compact_rows_multi", halo):
+                            step(xyz, mask)
+                        sync()
+                    res["launches"] = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+                    # _halo_exchange's compact_rows_multi(sel, bits, halo_cap)
+                    res["halo_rows"] = [min(int(args[0].sum()), args[2]) for args, _ in halo]
+                    if calls:
+                        res["calls"] = to_host(calls)
+            out[(label, mode)] = res
+    return out
+
+
+def sharded_phase(dev, smi):
+    """Phase 11: the sharded step (``parallel/sharded.py``) in its three
+    modes, through ``parallel.launch.run_ranks`` as a user would start it,
+    on a 4,194,304-point corridor cut into four slabs along x, towers on
+    each slab edge:
+      * 4 ranks sharing the card over gloo (collectives staged through the
+        host) and 1 rank over NCCL: the
+        same accepted towers, member centroids within 1 cm, box centres too
+        in exact mode (whose cell grid is anchored at the global minimum;
+        the modular and fast steps anchor their grids per rank, as the JAX
+        package does, so the vegetation cells a tower adopts may differ:
+        their box centres are reported); every rank's merged dict
+        bit-identical to rank 0's; every planted tower within TOWER_TOL_M
+        (xy) of a member centroid; cells_overflow and halo_overflow 0;
+        the halo rows each rank's step selected equal to those derived
+        from the corridor; member counts of 4 ranks and 1 reported;
+        wall ms a step, collective calls and ms a step by collective (4
+        ranks on one card share it: these say nothing of four-card
+        scaling), rank 0's device-busy ms;
+      * 4 ranks on the CPU over gloo at 4 x 32,768 rows against the same
+        ranks on the card: the same accepted towers and counts, geometry
+        within 1 mm.
+    Every kernel call of rank 0's 4-rank step in each mode is returned for
+    phase 3; its launches too.  Raises after printing everything if a gate
+    failed.  Returns (results, launches by mode, kernel calls by mode)."""
+    from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams
+    from pointcloudhookup_tpu_torch.ops.frontend_exact import exact_cell_plan
+    from pointcloudhookup_tpu_torch.parallel.launch import run_ranks
+    from pointcloudhookup_tpu_torch.parallel.sharded import _halo_capacity
+
+    n_r = SHARDED_RANKS
+    # the bench tile's parameters on the grid path, config 5's density floor
+    params = ExtractParams(cluster=ClusterParams(method="grid", min_cell_points=3))
+    halo_w = 2.0 * params.cluster.eps
+
+    def corridor(n, seed):
+        pts, centers = sharded_corridor(n, seed)
+        origin = pts.mean(axis=0)
+        xyz = (pts - origin).astype(np.float32)
+        mask = np.ones(n, bool)
+        bits = exact_cell_plan(pts.max(axis=0) - pts.min(axis=0), params.cluster.eps)
+        if bits is None:
+            raise AssertionError("phase 11: no exact cell plan for the corridor")
+        return xyz, mask, bits, centers - origin
+
+    xyz, mask, bits, planted = corridor(N_POINTS, SEED)
+    small = corridor(n_r * SHARDED_SMALL, SEED + 1)
+    rows, rows_s = N_POINTS // n_r, SHARDED_SMALL
+
+    def shard(c, r, m):
+        return c[0][r * m:(r + 1) * m], c[1][r * m:(r + 1) * m]
+
+    # slab edges, the towers cut by them (member rows in two slabs), and
+    # the halo rows each rank should send [right, left], derived here in
+    # numpy by the step's rule (float32, as the step compares) to check the
+    # rows that the step's own selections chose
+    edges = [float(xyz[r * rows, 0]) for r in range(1, n_r)]
+    cut = 0
+    for cx, cy, _ in planted:
+        lo, hi = np.searchsorted(xyz[:, 0], [cx - 6.0, cx + 6.0])
+        near = (np.abs(xyz[lo:hi, 1] - cy) <= 6.0) & (xyz[lo:hi, 2] > 8.0)
+        cut += len(set(((lo + np.nonzero(near)[0]) // rows).tolist())) > 1
+    halo_derived = []
+    width, cap = np.float32(halo_w), _halo_capacity(rows)
+    for r in range(n_r):
+        x = xyz[r * rows:(r + 1) * rows, 0]
+        right = int((x >= xyz[(r + 1) * rows, 0] - width).sum()) if r + 1 < n_r else 0
+        left = int((x <= xyz[r * rows - 1, 0] + width).sum()) if r > 0 else 0
+        halo_derived.append([min(right, cap), min(left, cap)])
+    print(f"11. corridor {N_POINTS} points, {len(planted)} towers, {n_r} slabs along x "
+          f"(edges at x = {', '.join(f'{e:.1f}' for e in edges)} m), towers cut by an edge "
+          f"{cut}; exact cell bits {bits}")
+    failures = []
+    if cut < 3:
+        failures.append(f"only {cut} towers have member rows in two slabs")
+
+    t0 = time.perf_counter()
+    four = run_ranks(sharded_rank, [
+        ({"big": shard((xyz, mask), r, rows) + (bits, SHARDED_REPS),
+          "small": shard(small, r, rows_s) + (small[2], 0)}, params, True)
+        for r in range(n_r)], backend="gloo", devices=str(dev))
+    t_four = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = run_ranks(sharded_rank, [({"big": (xyz, mask, bits, SHARDED_REPS)}, params, False)],
+                    backend="nccl", devices=[str(dev)])[0]
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run_ranks(sharded_rank, [({"small": shard(small, r, rows_s) + (small[2], 0)},
+                                    params, False) for r in range(n_r)],
+                    backend="gloo", devices="cpu")
+    t_cpu = time.perf_counter() - t0
+    print(f"11. launches: {n_r} ranks gloo on {dev} {t_four:.1f} s, 1 rank nccl "
+          f"{t_one:.1f} s, {n_r} ranks gloo on the CPU {t_cpu:.1f} s (process start, kernel "
+          f"load and every step included)")
+
+    def towers(merged):
+        acc = merged["accepted"]
+        return merged["center"][acc], merged["centroid"][acc], merged["count"][acc]
+
+    def order_tol(count, centroid):
+        """What f32 summation order may move a member centroid: sqrt(3 n) u
+        max|x| for n members (u = 2**-24; sqrt(n) u |x| is the recursive sum's
+        probabilistic error a run, with margin for two runs)."""
+        return np.sqrt(3.0 * count) * 2.0**-24 * np.abs(centroid).max(axis=-1) + 1e-6
+
+    def replicated(per_rank, key, what):
+        m0 = per_rank[0][key]["merged"]
+        for r in range(1, len(per_rank)):
+            for k, v in per_rank[r][key]["merged"].items():
+                if v.tobytes() != m0[k].tobytes():
+                    failures.append(f"{what}: rank {r}'s {k} differs from rank 0's")
+        return m0
+
+    results, launches, calls = {}, {}, {}
+    for mode in SHARDED_MODES:
+        m4 = replicated(four, ("big", mode), f"{mode}, 4 ranks")
+        m1 = one[("big", mode)]["merged"]
+        c4, g4, n4 = towers(m4)
+        c1, g1, n1 = towers(m1)
+        worst_box = worst_cen = worst_cen_tol = 0.0
+        count_diff = []  # member counts, 4 ranks - 1 rank, by tower
+        if len(c4) != len(c1):
+            failures.append(f"{mode}: 4 ranks accepted {len(c4)} towers, 1 rank {len(c1)}")
+        else:
+            used = set()
+            for i in range(len(g4)):
+                d = np.linalg.norm(g1 - g4[i][None], axis=1)
+                j = int(np.argmin(d))
+                if j in used:
+                    failures.append(f"{mode}: two 4-rank towers pair with one 1-rank tower")
+                used.add(j)
+                tol = SHARDED_CENTRE_TOL_M + order_tol(max(n4[i], n1[j]), g4[i])
+                if d[j] > tol:
+                    failures.append(f"{mode}: a member centroid {d[j]:.4f} m from the 1-rank "
+                                    f"one (bound {tol:.4f} m)")
+                worst_cen = max(worst_cen, float(d[j]))
+                worst_cen_tol = max(worst_cen_tol, float(tol))
+                worst_box = max(worst_box, float(np.linalg.norm(c4[i] - c1[j])))
+                count_diff.append(int(n4[i]) - int(n1[j]))
+        if mode == "exact" and worst_box > SHARDED_CENTRE_TOL_M:
+            failures.append(f"exact: a box centre {worst_box:.4f} m from the 1-rank one")
+        planted_worst = nearest_xy(planted, g4) if len(g4) else np.inf
+        if planted_worst > TOWER_TOL_M:
+            failures.append(f"{mode}: a planted tower {planted_worst:.2f} m from a centroid")
+        for name, m in (("4 ranks", m4), ("1 rank", m1)):
+            for flag in ("cells_overflow", "halo_overflow"):
+                if float(m[flag]) != 0.0:
+                    failures.append(f"{mode}, {name}: {flag} {float(m[flag])}")
+        # the small corridor: the card against the CPU
+        s_gpu = replicated(four, ("small", mode), f"{mode}, small, card")
+        s_cpu = replicated(cpu, ("small", mode), f"{mode}, small, CPU")
+        acc = s_gpu["accepted"]
+        geo = dict(box=0.0, centroid=0.0, centroid_bound=0.0)
+        if not (np.array_equal(acc, s_cpu["accepted"])
+                and np.array_equal(s_gpu["count"], s_cpu["count"])):
+            failures.append(f"{mode}: the card and the CPU accept different towers or counts")
+        elif acc.any():
+            geo["box"] = max(float(np.abs(s_gpu[k][acc] - s_cpu[k][acc]).max())
+                             for k in ("center", "extent"))
+            d = np.abs(s_gpu["centroid"][acc] - s_cpu["centroid"][acc]).max(axis=1)
+            bound = order_tol(s_gpu["count"][acc], s_gpu["centroid"][acc])
+            geo.update(centroid=float(d.max()), centroid_bound=float(bound.min()))
+            if geo["box"] > 1e-3 or (d > bound).any():
+                failures.append(f"{mode}: card and CPU geometry apart: box {geo['box']:.2e} m, "
+                                f"centroids {d.max():.2e} m (bounds 1e-3 m, f32 order)")
+        r4 = [four[r][("big", mode)] for r in range(n_r)]
+        r1 = one[("big", mode)]
+        wall4 = [float(np.median(r["wall_ms"])) for r in r4]
+        halo_read = [r["halo_rows"] for r in r4]
+        if halo_read != halo_derived:
+            failures.append(f"{mode}: the ranks' halo selections chose {halo_read} rows, "
+                            f"the corridor gives {halo_derived}")
+        if r1["halo_rows"]:
+            failures.append(f"{mode}: one rank selected halo rows {r1['halo_rows']}")
+        launches[f"sharded_{mode}"] = r4[0]["launches"]
+        calls[f"sharded_{mode}"] = r4[0].get("calls", [])
+        missing = [k for k in SHARDED_PATH[mode] if r4[0]["launches"][k] == 0]
+        if missing:
+            failures.append(f"{mode}: rank 0's step never launched {missing}")
+        results[mode] = dict(
+            towers_4=len(c4), towers_1=len(c1), towers_small=int(acc.sum()),
+            worst_centroid_m=worst_cen, centroid_bound_m=worst_cen_tol,
+            worst_box_centre_m=worst_box, count_diff_4_vs_1=count_diff, halo_rows=halo_read,
+            planted_worst_m=planted_worst, small_card_vs_cpu_m=geo,
+            wall_ms_4=wall4, wall_ms_1=r1["wall_ms"],
+            collective_calls_4=r4[0]["collective_calls"], collective_ms_4=r4[0]["collective_ms"],
+            collective_calls_1=r1["collective_calls"], collective_ms_1=r1["collective_ms"],
+            device_ms_rank0_4=r4[0].get("device_ms"), device_ms_1=r1.get("device_ms"),
+            launches_rank0_4=r4[0]["launches"], base_height=float(m4["base_height"]),
+        )
+        print(f"11. {mode}: 4 ranks {len(c4)} towers, 1 rank {len(c1)}; worst member centroid "
+              f"4 vs 1 {worst_cen:.6f} m (bound up to {worst_cen_tol:.4f} m), box centre "
+              f"{worst_box:.6f} m; member counts 4 - 1 by tower: {sum(map(bool, count_diff))} "
+              f"differ, by {min(count_diff, default=0)} to {max(count_diff, default=0)}; "
+              f"planted worst {planted_worst:.3f} m; small corridor card vs "
+              f"CPU {int(acc.sum())} towers, box centre and extent {geo['box']:.2e} m, member "
+              f"centroid {geo['centroid']:.2e} m (bound from {geo['centroid_bound']:.2e} m)")
+        print(f"11. {mode}: wall ms a step, 4 ranks on one card (median of {SHARDED_REPS} by "
+              f"rank) {[round(w, 2) for w in wall4]}, 1 rank nccl "
+              f"{[round(w, 2) for w in r1['wall_ms']]}; rank 0 device busy "
+              f"{r4[0].get('device_ms')} ms (1 rank: {r1.get('device_ms')}); collectives a "
+              f"step, rank 0 of 4: calls {r4[0]['collective_calls']} ("
+              f"{sum(r4[0]['collective_calls'].values())}), ms "
+              f"{ {k: round(v, 3) for k, v in r4[0]['collective_ms'].items()} }; 1 rank: calls "
+              f"{r1['collective_calls']} ({sum(r1['collective_calls'].values())}), ms "
+              f"{ {k: round(v, 3) for k, v in r1['collective_ms'].items()} }  [{smi}; 4 ranks "
+              f"share one card: no measure of four-card scaling]")
+        print(f"11. {mode}: launches of rank 0's step {r4[0]['launches']}; kernel calls "
+              f"captured {len(calls[f'sharded_{mode}'])}")
+        print(f"11. {mode}: halo rows sent, read from each rank's step [to the right, to the "
+              f"left]: {halo_read} (capacity {cap} a side; derived in numpy from the corridor: "
+              f"{halo_derived})  [{smi}]")
+    results["halo_rows_derived"] = halo_derived
+    results["launch_s"] = dict(four=t_four, one=t_one, cpu=t_cpu)
+    if failures:
+        raise AssertionError("phase 11: " + "; ".join(failures))
+    return results, launches, calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1583,6 +1962,11 @@ def main() -> int:
         dev, pts, centers, reset_counts, read_counts, counts_now, kernel_modules,
         profile_iteration)
     launches.update(stream_launches)
+
+    # ---- 11. the sharded step over torch.distributed: 4 ranks on the card
+    # (gloo) against 1 rank (nccl), and the card against the CPU
+    sharded, sharded_launches, sharded_calls = sharded_phase(dev, smi)
+    launches.update(sharded_launches)
 
     # ---- 3. each kernel vs its plain version at the paths' shapes.
     # Exact path: inputs as extract_from_points pads them; capacities as
@@ -2079,10 +2463,11 @@ def main() -> int:
     # the streaming paths' own calls (phase 10 (d)): every kernel call of one
     # fast and one modular stream_extract tile of STREAM_TILE_N points with
     # config 5's parameters (the ground pre-cut, the 8,192-cell grid table),
-    # each held against its plain version
-    for tile, calls in stream_calls.items():
+    # and of rank 0's 4-rank sharded step in each mode (phase 11), each held
+    # against its plain version
+    def replay(tag, calls):
         for i, (name, args, kw) in enumerate(calls):
-            label = f"{tile} (10d) call {i}"
+            label = f"{tag} call {i}"
             if name == "compactrows":
                 keep_t, chans_t, cap_t = args[:3]
                 stacked_t = torch.stack(chans_t)
@@ -2102,6 +2487,17 @@ def main() -> int:
                            f"{str(vals_t.dtype)[6:]}{list(vals_t.shape)}",
                      fn, lambda a=args: segscan.segmented_scan_plain(*a), cmp,
                      nbytes=vals_t.shape[0] * (2 * cols * vals_t.element_size() + 1))
+            elif name == "neighbor":
+                cen_t, _, _, allowed_t, e2_t = args
+                m_t = cen_t.shape[0]
+                live_t = int((cen_t[:, 0].abs() < 1e37).sum())
+                case(name, f"{label}: {kw.get('mode')} M={m_t} ({live_t} live, "
+                           f"{int(allowed_t.sum())} allowed)",
+                     lambda a=args, k_=kw: neighbor.neighbor_reduce(*a, **k_),
+                     lambda a=args, k_=kw: neighbor.neighbor_reduce_plain(*a, **k_),
+                     exact(name), nbytes=m_t * (12 + 4 + 1 + 4),
+                     pairs=int(pair_counts(cen_t, allowed_t, e2_t).sum()),
+                     all_pairs=live_t * int(allowed_t.sum()))
             elif name == "cluster_converge":
                 mp = float(args[5])
                 pairs, all_pairs, nc = converge_pairs(args[0], args[1], args[2], mp,
@@ -2112,7 +2508,19 @@ def main() -> int:
                      lambda a=args, k_=kw: cluster_converge.cluster_cells_plain(*a, **k_),
                      exact(name), nbytes=args[0].shape[0] * (12 + 4 + 1 + 4 + 4 + 4),
                      pairs=pairs, all_pairs=all_pairs, plain_reps=1)
-            else:  # obb_accumulate
+            elif name == "obb_accum":
+                x_t, y_t, z_t, lab_t = args
+                k_t, a_t = kw["max_clusters"], kw["num_angles"]
+                mag_t = obb_accum.obb_accumulate_xyz_plain(
+                    x_t.abs(), y_t.abs(), z_t.abs(), lab_t, max_clusters=k_t, num_angles=a_t)
+                n_lab_t = int(((lab_t >= 0) & (lab_t < k_t)).sum())
+                case(name, f"{label}: rows {x_t.shape[0]} ({n_lab_t} labelled), "
+                           f"K={k_t}, A={a_t}",
+                     lambda a=args, k_=kw: obb_accum.obb_accumulate_xyz(*a, **k_),
+                     lambda a=args, k_=kw: obb_accum.obb_accumulate_xyz_plain(*a, **k_),
+                     cmp_obb(name, mag_t), nbytes=x_t.shape[0] * 16
+                     + 4 * (6 * k_t + 4 * k_t * a_t), flops=6.0 * n_lab_t * a_t)
+            elif name == "obb_accumulate":
                 hi_t, lo_t, lab_t, mn_t = args
                 vs_t, off_t = obb_accum._morton_offset(mn_t, kw["voxel_size"])
                 vs_d = torch.tensor(vs_t, dtype=torch.float32, device=dev)
@@ -2128,9 +2536,18 @@ def main() -> int:
                      lambda a=args, k_=kw: obb_accum.obb_accumulate_plain(*a, **k_),
                      cmp_obb(name, mag_t), nbytes=hi_t.shape[0] * 12 + 12
                      + 4 * (6 * k_t + 4 * k_t * a_t), flops=6.0 * n_lab_t * a_t)
-    missing = [(tile, name) for tile, path in (("stream_fast", FAST_PATH),
-                                               ("stream_modular", MODULAR_GRID_PATH))
-               for name in path if name not in {c[0] for c in stream_calls[tile]}]
+            else:
+                raise AssertionError(f"phase 3: no replay for a {name} call")
+
+    for tile, calls in stream_calls.items():
+        replay(f"{tile} (10d)", calls)
+    for mode_key, calls in sharded_calls.items():
+        replay(f"{mode_key} (11, rank 0 of {SHARDED_RANKS})", to_device(calls, dev))
+    captured = {**stream_calls, **sharded_calls}
+    paths = {"stream_fast": FAST_PATH, "stream_modular": MODULAR_GRID_PATH,
+             **{key: SHARDED_PATH[key.split("_", 1)[1]] for key in sharded_calls}}
+    missing = [(key, name) for key, path in paths.items() for name in path
+               if name not in {c[0] for c in captured[key]}]
     if missing:
         raise AssertionError(f"phase 3: no captured call of {missing}")
 
@@ -2163,7 +2580,7 @@ def main() -> int:
         bench_precut_div=precut_div, bench=bench, bench_profile=profile,
         sort_modes=sort_modes, mergesort_parts=mergesort_parts, modular=modular,
         cluster_converge_row_order=order_ms, gim_workflow=gim,
-        registration_streaming=phase10,
+        registration_streaming=phase10, sharded=sharded,
     )))
     print(json.dumps(dict(kernels=entries)))
     print(json.dumps(dict(

@@ -141,7 +141,7 @@ def exact_extract_graph(
     min_cell_points: int = 1,
     core_cap: int = 16384,
     _cut: int = 0,
-    axis_name: str | None = None,
+    group=None,
     local_rows: int | None = None,
     return_acc: bool = False,
 ):
@@ -154,6 +154,12 @@ def exact_extract_graph(
     join the clustering but not the OBB accumulators; return_acc also
     returns the raw accumulators under 'acc'.
 
+    group (the JAX function's ``axis_name``; a ``parallel.sharded.Group``,
+    for the sharded exact step): the ground percentile is the exact one of
+    every rank's masked rows, the retry decision counts every rank's
+    survivors, and the cell grid's anchor is the minimum over the ranks,
+    so every rank cuts and quantizes identically.
+
     Returns a dict of tensors: per-cluster stats [K] + accepted[K];
     labels_sorted int32[C] (cluster id / -1) and rows_sorted int32[C]
     (original row of each cell-sorted row, meaningful below
@@ -161,11 +167,6 @@ def exact_extract_graph(
     count), cells_overflow (dense cells beyond max_cells, + 1.0 if the
     compaction capacity overflowed) and core_overflow.  _cut returns the
     named intermediates of one stage early (see the stage list)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "multi-device exact extraction (axis_name) is not ported yet: "
-            "ROADMAP module item 10"
-        )
     n = xyz.shape[0]
     m = max_cells
     c = compact_cap
@@ -190,9 +191,12 @@ def exact_extract_graph(
 
     # ---- exact ground base + cut
     z = xyz[:, 2].contiguous()
-    base = masked_percentile_bisect(z, mask, gp.percentile)
+    base = masked_percentile_bisect(z, mask, gp.percentile, group)
     keep0 = mask & (z > base + scalar(gp.offset))
-    used_retry = keep0.sum() < gp.min_points_after
+    n0 = keep0.sum(dtype=torch.int32)
+    if group is not None:
+        n0 = group.all_reduce(n0, "sum")
+    used_retry = n0 < gp.min_points_after
     keep = torch.where(used_retry, mask & (z > base + scalar(gp.retry_offset)), keep0)
     if _cut == 1:
         return dict(base=base, keep=keep)
@@ -209,6 +213,8 @@ def exact_extract_graph(
 
     # ---- cell keys against the kept-set f32 min corner
     mn = torch.stack([torch.where(valid0, v, _BIG).min() for v in (xs0, ys0, zs0)])
+    if group is not None:
+        mn = group.all_reduce(mn, "min")
     i0 = torch.floor((xs0 - mn[0]) * inv_cell).to(torch.int32)
     i1 = torch.floor((ys0 - mn[1]) * inv_cell).to(torch.int32)
     i2 = torch.floor((zs0 - mn[2]) * inv_cell).to(torch.int32)

@@ -2,7 +2,8 @@
 
 Counterpart of ``pointcloudhookup_tpu/ops/obb.py``: the stable compaction
 helper, the sort-free accumulator path of the fused front-end
-(``cluster_obb_accumulators``, ``cluster_obb_stats_accum``) with the
+(``cluster_obb_accumulators``, ``cluster_obb_stats_accum``) and of the
+sharded modular step (``cluster_obb_accumulators_xyz``) with the
 finisher that turns the OBB accumulators (``ops/kernels/obb_accum.py``)
 into per-cluster stats, and the sort-based path (``cluster_obb_stats``,
 ``cluster_obb_stats_codes``): members sorted by label, densified into a
@@ -19,7 +20,7 @@ import math
 
 import torch
 
-from pointcloudhookup_tpu_torch.ops.kernels.obb_accum import obb_accumulate
+from pointcloudhookup_tpu_torch.ops.kernels.obb_accum import obb_accumulate, obb_accumulate_xyz
 from pointcloudhookup_tpu_torch.ops.morton import fma_f32, morton_decode
 
 _BIG = 3.0e38
@@ -57,6 +58,18 @@ def cluster_obb_accumulators(hi, lo, labels, mask, mn, *, voxel_size: float = 0.
         hi, lo, lab, mn, voxel_size=voxel_size, max_clusters=k,
         num_angles=num_angles,
     )
+
+
+def cluster_obb_accumulators_xyz(xyz, labels, mask, *, max_clusters: int = 128,
+                                 num_angles: int = 256):
+    """cluster_obb_accumulators over raw float32[N,3] coordinates (the
+    sharded modular step: no Morton codes); same return contract.  CUDA
+    tensors run the obb_accumulate_xyz kernel at any N (the JAX function
+    takes its reference where N is not a multiple of its block)."""
+    k = max_clusters
+    lab = torch.where((labels >= 0) & (labels < k) & mask, labels, -1)
+    x, y, z = (xyz[:, a].contiguous() for a in range(3))
+    return obb_accumulate_xyz(x, y, z, lab, max_clusters=k, num_angles=num_angles)
 
 
 def cluster_obb_stats_accum(hi, lo, labels, mask, mn, *, voxel_size: float = 0.1,

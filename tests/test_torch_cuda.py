@@ -1497,3 +1497,150 @@ def test_streamed_copy_overlaps_a_running_step(cuda):
     ref = list(TileStreamer(tiles, capacity=262_144, wire="u16", device="cpu"))[2]
     assert torch.equal(x2.cpu(), ref[0]) and torch.equal(m2.cpu(), ref[1])
     assert list(it) == []
+
+
+# ------------------------------------------------------------------
+# The sharded step (parallel/): ranks on the card against the CPU
+
+
+def _sharded_inputs(n_ranks, per_rank=8192, seed=4):
+    """A corridor sorted by x (slabs along x), towers near the slab edges."""
+    from pointcloudhookup_tpu_torch.entry import _boundary_corridor
+    from pointcloudhookup_tpu_torch.ops.frontend_exact import exact_cell_plan
+
+    xyz, mask, _ = _boundary_corridor(n_ranks * per_rank, n_towers=6, seed=seed)
+    bits = exact_cell_plan(xyz[mask].max(axis=0) - xyz[mask].min(axis=0), 5.0)
+    return xyz, mask, bits
+
+
+def _sharded_params():
+    from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams, GroundParams
+
+    return ExtractParams(ground=GroundParams(min_points_after=64),
+                         cluster=ClusterParams(eps=5.0, min_points=16, method="grid"),
+                         max_clusters=32, obb_angles=32)
+
+
+def _run_sharded(n_ranks, backend, devices, mode):
+    """Every rank's merged dict of one sharded step (numpy)."""
+    from pointcloudhookup_tpu_torch.parallel import launch, sharded
+
+    xyz, mask, bits = _sharded_inputs(n_ranks)
+    rows = xyz.shape[0] // n_ranks
+    calls = [([(sharded.make_sharded_extract, (),
+                dict(params=_sharded_params(), mode=mode, exact_cell_bits=bits),
+                (xyz[r * rows:(r + 1) * rows], mask[r * rows:(r + 1) * rows]))],)
+             for r in range(n_ranks)]
+    out = launch.run_ranks(launch.call_on_rank, calls, backend=backend, devices=devices,
+                           timeout=600)
+    return [o[0][1] for o in out]
+
+
+def _same_sharded(got, ref):
+    """The same towers and counts; geometry within 1 mm (f32 summation
+    order of the centroid sums)."""
+    acc = ref["accepted"]
+    assert acc.any()
+    np.testing.assert_array_equal(got["accepted"], acc)
+    np.testing.assert_array_equal(got["count"], ref["count"])
+    for key in ("center", "centroid", "extent"):
+        assert np.abs(got[key][acc] - ref[key][acc]).max() <= 1e-3, key
+    for key in ("base_height", "cells_overflow", "halo_overflow"):
+        assert got[key].tobytes() == ref[key].tobytes(), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["modular", "fast", "exact"])
+def test_sharded_step_one_rank_nccl_matches_cpu(cuda, mode):
+    """World size 1 over NCCL (its collectives' dtypes and shapes) against
+    one gloo rank on the CPU."""
+    (got,) = _run_sharded(1, "nccl", ["cuda:0"], mode)
+    (ref,) = _run_sharded(1, "gloo", "cpu", mode)
+    _same_sharded(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["modular", "fast", "exact"])
+def test_sharded_step_two_ranks_gloo_on_one_card(cuda, mode):
+    """Two gloo ranks sharing cuda:0 against two on the CPU; every rank's
+    merged dict is rank 0's."""
+    got = _run_sharded(2, "gloo", "cuda:0", mode)
+    ref = _run_sharded(2, "gloo", "cpu", mode)
+    for merged in got[1:]:
+        for key, val in got[0].items():
+            assert merged[key].tobytes() == val.tobytes(), key
+    _same_sharded(got[0], ref[0])
+
+
+def _gathered_accumulators(seed, d=4, k=32, a=16):
+    rng = np.random.default_rng(seed)
+    parts = []
+    for r in range(d):
+        xyz = rng.uniform(-60, 60, (4000, 3)).astype(np.float32)
+        xyz[:, 0] += 100.0 * r
+        lab = rng.integers(-1, k, 4000).astype(np.int32)
+        acc = obb_accum.obb_accumulate_xyz_plain(*(t(xyz[:, i]) for i in range(3)), t(lab),
+                                                 max_clusters=k, num_angles=a)
+        parts.append({key: n(v) for key, v in acc.items()})
+    return {key: np.concatenate([p[key] for p in parts]) for key in parts[0]}
+
+
+@pytest.mark.cuda
+def test_merge_accumulators_bit_identical_run_to_run(cuda):
+    """The replicated merge on the card: bit-identical over runs and to the
+    CPU's (each group summed in row order, one add a round: no order left
+    to atomics)."""
+    from pointcloudhookup_tpu_torch.parallel.sharded import _merge_accumulators
+
+    acc = _gathered_accumulators(5)
+    ref = _merge_accumulators({key: t(v) for key, v in acc.items()}, 25.0)
+    runs = [_merge_accumulators({key: t(v, cuda) for key, v in acc.items()}, 25.0)
+            for _ in range(3)]
+    for got in runs:
+        for key, val in ref.items():
+            assert n(got[key]).tobytes() == n(val).tobytes(), key
+
+
+class _TwoRanksLocal:
+    """The collectives of rank 0 of two, answered locally (as if the other
+    rank held the same rows): no process group, no host sync."""
+
+    rank, size = 0, 2
+
+    def all_reduce(self, x, op):
+        return x.clone()
+
+    def all_gather(self, x):
+        return torch.stack([x, x + 1.0])
+
+    def shift(self, x, offset):
+        return x.clone()
+
+
+@pytest.mark.cuda
+def test_fragment_union_and_halo_make_no_host_sync(cuda):
+    """_fragment_union (16 fixed rounds) and the halo exchange's selection
+    and packing (one compactrows call a side) never wait for the device."""
+    from pointcloudhookup_tpu_torch.parallel.sharded import _fragment_union, _halo_exchange
+
+    acc = {key: t(v, cuda) for key, v in _gathered_accumulators(6).items()}
+    alive = acc["cnt"] > 0
+    lo = torch.stack([acc["ulo"][:, 0], acc["vlo"][:, 0], acc["zlo"]], dim=1)
+    hi = torch.stack([acc["uhi"][:, 0], acc["vhi"][:, 0], acc["zhi"]], dim=1)
+    xyz, mask, _ = _sharded_inputs(2)
+    xyz_t, mask_t = t(xyz[:8192], cuda), t(mask[:8192], cuda)
+    _fragment_union(lo, hi, alive, 6.0)  # warm-up: kernel load, allocator
+    _halo_exchange(xyz_t, mask_t, _TwoRanksLocal(), 10.0, 2048)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rep = _fragment_union(lo, hi, alive, 6.0)
+        ext, ext_mask, is_local, over = _halo_exchange(xyz_t, mask_t, _TwoRanksLocal(), 10.0,
+                                                       2048)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = _fragment_union(lo.cpu(), hi.cpu(), alive.cpu(), 6.0)
+    assert torch.equal(rep.cpu(), ref)
+    ref_ext = _halo_exchange(xyz_t.cpu(), mask_t.cpu(), _TwoRanksLocal(), 10.0, 2048)
+    for got, want in zip((ext, ext_mask, is_local, over), ref_ext):
+        assert torch.equal(got.cpu(), want)

@@ -166,11 +166,23 @@ def test_return_acc_and_local_rows(workload, jax_cuts):
     local = lab[: CAP // 2]
     want = np.bincount(local[local >= 0], minlength=PARAMS.max_clusters)
     np.testing.assert_array_equal(acc["cnt"], want.astype(np.float32))
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        tfe.exact_extract_graph(
-            torch.from_numpy(xyz), torch.from_numpy(mask), PARAMS,
-            axis_name="tiles", **kw
-        )
+    # a group of one rank (its collectives return their input) changes
+    # nothing; several ranks are tests/test_torch_parallel.py's
+    alone = tfe.exact_extract_graph(
+        torch.from_numpy(xyz), torch.from_numpy(mask), PARAMS, return_acc=True,
+        local_rows=CAP // 2, group=_OneRank(), **kw
+    )
+    for key, val in state.to_numpy(alone["acc"]).items():
+        np.testing.assert_array_equal(val, acc[key])
+    np.testing.assert_array_equal(alone["labels_sorted"].numpy(), out["labels_sorted"].numpy())
+    assert float(alone["base_height"]) == float(out["base_height"])
+
+
+class _OneRank:
+    """The collectives of a group of one rank."""
+
+    def all_reduce(self, t, op):
+        return t.clone()
 
 
 def _reciprocal_split_tile(workload, eps):

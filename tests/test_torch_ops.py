@@ -219,9 +219,11 @@ def test_state_roundtrip_dtypes():
         state.to_torch(np.zeros(2, np.float64))
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     """In a fresh interpreter, importing every module of the port and
-    chip_smoke loads no jax* module and no module of the JAX package."""
+    chip_smoke loads no jax* module and no module of the JAX package; nor
+    does a rank that parallel.launch spawns and that runs the sharded
+    step."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import pointcloudhookup_tpu_torch as pkg\n"
@@ -229,7 +231,7 @@ def test_port_never_imports_jax():
         "assert len(names) > 20, names\n"
         "new = {'ops.voxel', 'ops.geo', 'io.sevenzip', 'io.gim', 'io.cbm',\n"
         "       'ops.registration', 'models.refine', 'core.streaming', 'core.governor',\n"
-        "       'utils.validate'}\n"
+        "       'utils.validate', 'parallel.sharded', 'parallel.launch', 'parallel.group'}\n"
         "assert {pkg.__name__ + '.' + m for m in new} <= set(names), names\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
@@ -238,12 +240,39 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True,
-        timeout=120, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=root,
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+    # a spawned rank imports its target's module: here a script that
+    # imports only the port, whose two ranks run the modular step
+    script = tmp_path / "ranks.py"
+    script.write_text(
+        "import sys\n"
+        "import numpy as np\n"
+        "from pointcloudhookup_tpu_torch.parallel import launch, sharded\n\n"
+        "def target(device, xyz, mask):\n"
+        "    group = sharded.tile_mesh()\n"
+        "    import torch\n"
+        "    sharded.make_sharded_extract(group)(torch.from_numpy(xyz), torch.from_numpy(mask))\n"
+        "    return sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "                  ('jax', 'jaxlib', 'pointcloudhookup_tpu'))\n\n"
+        "if __name__ == '__main__':\n"
+        "    rng = np.random.default_rng(0)\n"
+        "    xyz = rng.uniform(-50, 50, (2, 512, 3)).astype(np.float32)\n"
+        "    mask = np.ones((2, 512), bool)\n"
+        "    out = launch.run_ranks(target, [(xyz[r], mask[r]) for r in range(2)],\n"
+        "                           backend='gloo', devices='cpu', timeout=120)\n"
+        "    assert out == [[], []], out\n"
+        "    print('ranks ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    res = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                         timeout=180, cwd=root, env=env)
+    assert res.returncode == 0, res.stderr
+    assert "ranks ok" in res.stdout
 
 
 def _morton_axes(seed, size):
