@@ -81,6 +81,18 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      card at 4 x 32,768 rows; wall, collective and device ms, halo rows,
      member counts of 4 ranks and 1; rank 0's kernel calls of each mode go
      to phase 3;
+ 12. the viewers, the elevation report and the library functions on 9
+     (a)'s files, no plain version allowed in the commands: (a) ``render
+     --towers`` (24 boxes, a 1280 x 960 PNG read back with zlib, box-colour
+     pixels; render_scene on the card pixel-identical to the CPU, wall and
+     device-busy ms); (b) ``export-scene`` to .ply (500,000 + 24 x 24
+     vertices, 288 edges) and .laz (xyz to the LAS scale, RGB x 257); (c)
+     ``viz-export`` (24 boxes, each the card's towers' geometry); (d)
+     ``elevation-report`` with a save_gtx grid of a known plane (24 rows
+     within 1e-4 m of h - N) and with the empirical N; (e) random_downsample
+     to 2,000,000 rows and RANSAC (card == CPU on the same bits and
+     triples; on the 4M tile ground removed, towers kept, peak bytes), and
+     the segment rows on 8 m cell keys against segscan's plain version;
   3. runs each kernel and its plain PyTorch version on the same device
      tensors at the shapes the paths give it, requires agreement (integer
      outputs, pop, counts and extremes identical; OBB sums within the f32
@@ -108,12 +120,14 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      cell-sorted rows, timed also on the same rows in input order, and on
      the grid table; segscan and compactrows at grid_dbscan's calls,
      segscan also with the cut rows as one segment for comparison),
-     segscan at compress's call of phase 9 (a) (f32 [N, 4], reverse), and
-     every kernel call of rank 0's sharded step in each mode (phase 11).
+     segscan at compress's call of phase 9 (a) (f32 [N, 4], reverse),
+     every kernel call of rank 0's sharded step in each mode (phase 11),
+     and the segscan calls of phase 12 (e)'s segment rows.
 
 Launch counts are reset just before each path's run (1, 4, 5, each mode of
-7, 8 (a)-(c), 9 (a), 10 (a), a fast and a modular tile of 10 (d), and in
-rank 0 one sharded step of each mode of 11) and read just after.  Prints the card's name and power limit, one JSON line of
+7, 8 (a)-(c), 9 (a), 10 (a), a fast and a modular tile of 10 (d), in rank 0
+one sharded step of each mode of 11, and each command of 12 (a)-(c) and the
+segment rows of 12 (e)) and read just after.  Prints the card's name and power limit, one JSON line of
 per-kernel results, and as its last line {"ok": true, "device": {...}}.
 Any failure raises: the exit code is non-zero and the last line is not
 printed.  It imports nothing of JAX or of the JAX package.
@@ -1661,6 +1675,361 @@ def sharded_phase(dev, smi):
     return results, launches, calls
 
 
+# phase 12: the viewers (render, export-scene, viz-export), the elevation
+# report and the library functions, on phase 9's files
+VIEWER_CAP = 500_000  # the viewers' display cap (the CLI default)
+BOX_RGB = (255, 0, 0)  # the kuangxuan wireframe colour, (1, 0, 0) as u8
+DOWNSAMPLE_GB = 16  # recommend_chunk_size(16): 2,000,000 rows
+RANSAC_CPU_ROWS = 131_072  # (e): the card against the CPU on this many rows
+RANSAC_PEAK_BOUND = 1 << 30  # (e): a RANSAC call's peak allocated bytes at 4M rows
+# (d): a 0.25 deg grid around (28.2 N, 113.5 E) holding the plane
+# N = A + B (lat - 28.2) + C (lon - 113.5), which bilinear interpolation
+# reproduces up to the float32 rounding of the grid values
+GEOID_PLANE = (-20.0, 1.5, -0.8)
+
+
+def tile_rows(n: int):
+    """(ground rows, vegetation rows, rows a tower) of corridor_tile(n):
+    ground first, then vegetation, then each tower's rows in turn."""
+    return int(n * 0.80), int(n * 0.12), max((n - int(n * 0.92)) // 24, 1)
+
+
+@contextlib.contextmanager
+def keeping(module, attr, calls):
+    """Append (args, kwargs, result) of every call of module.attr made while
+    the block runs to calls; the calls go through."""
+    fn = getattr(module, attr)
+
+    def call(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, attr, call)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, fn)
+
+
+def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, profile, smi):
+    """Phase 12: the viewers, the elevation report and the library functions
+    on phase 9's files (the bench tile as a LAS at tm_forward(113.5, 28.2),
+    scale 0.01, and the GIM of its 24 towers), every kernel's plain version
+    made to raise in (a)-(c):
+
+      (a) ``render tile.las out.png --towers --device cuda`` through
+          ``__main__.main``: 24 tower boxes, a 1280 x 960 PNG that
+          viz/render.py's own reader decodes, box-colour pixels in it; then
+          render_scene on the card against the CPU on the same points,
+          subsample and geometries (pixel-identical, and identical to the
+          CLI's PNG); its wall and device-busy ms;
+      (b) ``export-scene tile.las scene.ply --towers`` and ``scene.laz``:
+          the PLY holds VIEWER_CAP cloud vertices plus 24 x 24 box vertices
+          and 288 edges; the .laz read back gives the subsample's xyz (to
+          the LAS scale) and the cluster colours x 257;
+      (c) ``viz-export``: 24 boxes of 24 points, each holding its tower's
+          centre, equal to tower_display_geometries of the towers the CLI's
+          extract() returned on the card;
+      (d) ``elevation-report model.gim --geoid grid.gtx --csv --text``, the
+          grid written by save_gtx (GEOID_PLANE): 24 rows, each within 1e-4
+          m of h - N; again with the empirical N;
+      (e) on the 4M tile: random_downsample to recommend_chunk_size(16)
+          rows (exactly that many kept, the rows numpy's stable argsort of
+          the same keys picks; the card and the CPU identical on the same
+          bits); ransac_plane, remove_ground_ransac (256 hypotheses) and
+          remove_ground_tiled_ransac (grid 8, 64) on RANSAC_CPU_ROWS rows,
+          the card and the CPU on the same triples (the same winners,
+          normals within 1e-6), and on the 4M rows on the card (ground rows
+          removed, each tower's rows at least 95 % kept, peak allocated
+          bytes within RANSAC_PEAK_BOUND); segment_{sum,max,min}_rows on the tile's sorted 8 m cell
+          keys, the card against the plain versions on the CPU (their
+          segscan calls go to phase 3).
+
+    Returns (results, launches by path, kernel calls by path)."""
+    import csv
+    import io
+
+    from pointcloudhookup_tpu_torch import __main__ as cli_mod
+    from pointcloudhookup_tpu_torch.io.geoid import save_gtx
+    from pointcloudhookup_tpu_torch.io.las import read_las
+    from pointcloudhookup_tpu_torch.models import pipeline
+    from pointcloudhookup_tpu_torch.native import get_laz_lib
+    from pointcloudhookup_tpu_torch.ops import ground, sample, segments
+    from pointcloudhookup_tpu_torch.ops.geo import GeoidGrid
+    from pointcloudhookup_tpu_torch.ops.kernels import segscan
+    from pointcloudhookup_tpu_torch.viz import boxes, export, render
+
+    results, launches, calls = {}, {}, {}
+    phase_t0 = time.perf_counter()
+
+    def run_cli(argv, what=None):
+        """One command through __main__.main, no plain version allowed: (wall
+        ms, stdout, launches or None)."""
+        buf = io.StringIO()
+        with no_plain_versions(kernel_modules), contextlib.redirect_stdout(buf):
+            reset_counts()
+            t0 = time.perf_counter()
+            cli_mod.main(argv)
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts(EXACT_PATH, what) if what else None
+        return ms, buf.getvalue(), counts
+
+    def ms_of(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3, out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_viewers_") as tmp:
+        las_path, gim_path, _, gts, _, _ = gim_files(tmp, pts, centers)
+        world = read_las(las_path).xyz()  # the points the commands read
+        n_towers = len(gts)
+
+        # ---- (a) render --towers on the card
+        png = os.path.join(tmp, "scene.png")
+        geo = []
+        with keeping(boxes, "tower_display_geometries", geo):
+            ms, out, launches["viewer_render"] = run_cli(
+                ["render", las_path, png, "--towers", "--device", str(dev)], "(a) render")
+        img = render.read_png(png)
+        box_px = int((img == BOX_RGB).all(axis=2).sum())
+        print(f"(a) render: wall {ms:.1f} ms; {out.strip().splitlines()[0]}; PNG {img.shape}, "
+              f"{box_px} box-colour pixels")
+        if f"{n_towers} tower boxes" not in out or img.shape != (960, 1280, 3) or box_px == 0:
+            raise AssertionError(f"(a) render: {out!r}, image {img.shape}, {box_px} box pixels")
+        geoms = geo[-1][2]
+        scene_ms, img_g = ms_of(lambda: render.render_scene(world, geoms, device=dev))
+        img_c = render.render_scene(world, geoms, device="cpu")
+        differ = int((img_g != img_c).any(axis=2).sum())
+        prof = profile(lambda: render.render_scene(world, geoms, device=dev), top=8)
+        print(f"(a) render_scene ({VIEWER_CAP} of {len(world)} points, {len(geoms)} boxes): "
+              f"{dev} vs CPU {differ} pixels differ, CLI image "
+              f"{'identical' if np.array_equal(img, img_g) else 'DIFFERENT'}; wall "
+              f"{scene_ms:.1f} ms, one profiled call: wall {prof['wall_ms']:.1f} ms, device "
+              f"busy {prof['device_ms']} ms, idle share {prof['idle_share']}  [{smi}]")
+        if differ or not np.array_equal(img, img_g):
+            raise AssertionError(f"(a) render_scene: {differ} pixels differ from the CPU's")
+        results["a"] = dict(cli_wall_ms=ms, box_pixels=box_px, render_scene_wall_ms=scene_ms,
+                            render_scene_profile=dict(wall_ms=prof["wall_ms"],
+                                                      device_ms=prof["device_ms"],
+                                                      idle_share=prof["idle_share"]),
+                            pixels_differ=differ)
+
+        # ---- (b) export-scene: a PLY with the wireframes, a LAZ of the cloud
+        # (the LAZ codec built first, so that the command's wall leaves out g++)
+        codec_ms, codec = ms_of(get_laz_lib)
+        if codec is None:
+            raise AssertionError("(b) the native LAZ codec did not build")
+        print(f"(b) the LAZ codec built with g++ in {codec_ms / 1e3:.1f} s")
+        ply, laz = os.path.join(tmp, "scene.ply"), os.path.join(tmp, "scene.laz")
+        scene = []
+        with keeping(cli_mod, "_towers_and_labels", scene):
+            ms_ply, out_ply, launches["viewer_export_ply"] = run_cli(
+                ["export-scene", las_path, ply, "--towers", "--device", str(dev)],
+                "(b) export-scene .ply")
+            ms_laz, out_laz, launches["viewer_export_laz"] = run_cli(
+                ["export-scene", las_path, laz, "--towers", "--device", str(dev)],
+                "(b) export-scene .laz")
+        xyz_s, _, edges_s = export.read_ply_scene(ply)
+        idx = boxes.subsample_indices(len(world), VIEWER_CAP, 0)
+        towers_l, labels_l = scene[-1][2]
+        cols = export.colors_from_labels(labels_l, [t.label for t in towers_l])[idx]
+        back = read_las(laz)
+        xyz_err = float(np.abs(back.xyz() - world[idx]).max())
+        rgb_ok = all(np.array_equal(back.points[c], cols[:, k].astype(np.uint16) * 257)
+                     for k, c in enumerate(("red", "green", "blue")))
+        print(f"(b) export-scene: .ply wall {ms_ply:.1f} ms ({len(xyz_s)} vertices, "
+              f"{len(edges_s)} edges), .laz wall {ms_laz:.1f} ms ({len(back)} points, xyz "
+              f"within {xyz_err:.3g} m of the subsample at scale {back.scales.tolist()}, RGB "
+              f"{'x257 as coloured' if rgb_ok else 'WRONG'})")
+        if (len(xyz_s) != VIEWER_CAP + 24 * n_towers or len(edges_s) != 12 * n_towers
+                or len(back) != VIEWER_CAP or xyz_err > back.scales.max() / 2 + 1e-6
+                or not rgb_ok):
+            raise AssertionError(f"(b) export-scene: {len(xyz_s)} vertices, {len(edges_s)} "
+                                 f"edges; laz {len(back)} points, {xyz_err} m, rgb {rgb_ok}")
+        results["b"] = dict(codec_build_ms=codec_ms, ply_wall_ms=ms_ply, laz_wall_ms=ms_laz,
+                            vertices=len(xyz_s),
+                            edges=len(edges_s), laz_xyz_err_m=xyz_err)
+
+        # ---- (c) viz-export
+        js = os.path.join(tmp, "boxes.json")
+        ext = []
+        with keeping(pipeline, "extract", ext):
+            ms_c, out_c, launches["viewer_viz_export"] = run_cli(
+                ["viz-export", las_path, js, "--device", str(dev)], "(c) viz-export")
+        with open(js) as f:
+            payload = json.load(f)
+        towers_c = ext[-1][2]
+        expect = json.loads(json.dumps([dict(points=np.asarray(p).tolist(), color=list(c))
+                                        for p, c in boxes.tower_display_geometries(towers_c)]))
+        held = [bool((np.min(b["points"], 0) <= t.center).all()
+                     and (t.center <= np.max(b["points"], 0)).all())
+                for b, t in zip(payload, towers_c)]
+        print(f"(c) viz-export: wall {ms_c:.1f} ms, {len(payload)} boxes of "
+              f"{sorted({len(b['points']) for b in payload})} points, each holding its tower's "
+              f"centre: {all(held)}, equal to the card's towers' geometries: {payload == expect}")
+        if (len(payload) != n_towers or any(len(b["points"]) != 24 for b in payload)
+                or not all(held) or payload != expect):
+            raise AssertionError("(c) viz-export: the boxes are not the towers'")
+        results["c"] = dict(wall_ms=ms_c, boxes=len(payload))
+
+        # ---- (d) elevation-report with a grid and with the empirical N
+        a, b, c = GEOID_PLANE
+        lat_g, lon_g = np.meshgrid(26.2 + 0.25 * np.arange(17), 111.5 + 0.25 * np.arange(17),
+                                   indexing="ij")
+        gtx = os.path.join(tmp, "grid.gtx")
+        save_gtx(GeoidGrid(26.2, 111.5, 0.25, 0.25, (a + b * (lat_g - 28.2)
+                                                     + c * (lon_g - 113.5)).astype(np.float32)),
+                 gtx)
+        worst = {}
+        for label, extra in (("grid", ["--geoid", gtx]), ("empirical", [])):
+            csv_path = os.path.join(tmp, f"{label}.csv")
+            ms_d, out_d, _ = run_cli(["elevation-report", gim_path, "--csv", csv_path, "--text",
+                                      os.path.join(tmp, f"{label}.txt"), "--output-folder",
+                                      os.path.join(tmp, f"og_{label}")] + extra)
+            with open(csv_path, encoding="utf-8") as f:
+                rows = list(csv.DictReader(f))
+            n_exp = [a + b * (float(r["lat"]) - 28.2) + c * (float(r["lon"]) - 113.5)
+                     if label == "grid" else 28.0 for r in rows]
+            err = max(abs(float(r["h_orthometric"]) - (float(r["h_ellipsoid"]) - n))
+                      for r, n in zip(rows, n_exp))
+            h_err = max(abs(float(r["h_ellipsoid"]) - t["h"]) for r, t in zip(rows, gts))
+            worst[label] = err
+            print(f"(d) elevation-report, {label} N: wall {ms_d:.1f} ms, {len(rows)} rows, "
+                  f"h_orthometric within {err:.3g} m of h - N (bound 1e-4), h within "
+                  f"{h_err:.3g} m of the GIM's; {out_d.strip().splitlines()[-1]}")
+            if len(rows) != n_towers or err > 1e-4:
+                raise AssertionError(f"(d) elevation-report ({label}): {len(rows)} rows, {err} m")
+        results["d"] = dict(worst_m=worst)
+
+    # ---- (e) the library functions on the 4M tile
+    n_ground, n_veg, per_tower = tile_rows(N_POINTS)
+    xyz_np, mask_np = padded(pts, N_POINTS)
+    xyz_g, mask_g = torch.from_numpy(xyz_np).to(dev), torch.from_numpy(mask_np).to(dev)
+    xyz_c, mask_c = torch.from_numpy(xyz_np), torch.from_numpy(mask_np)
+    max_points = sample.recommend_chunk_size(DOWNSAMPLE_GB)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    draw_ms, bits = ms_of(lambda: sample.random_bits(N_POINTS, gen, device=dev))
+    ds_ms, (out_g, keep_g) = timed(
+        lambda: sample.random_downsample_from_bits(xyz_g, mask_g, bits, max_points), 5)
+    out_c, keep_c = sample.random_downsample_from_bits(xyz_c, mask_c, bits.cpu(), max_points)
+    bits_np = bits.cpu().numpy()
+    order = np.argsort(np.where(mask_np, bits_np >> 1, 0xFFFFFFFF), kind="stable")[:max_points]
+    same = torch.equal(out_g.cpu(), out_c) and torch.equal(keep_g.cpu(), keep_c)
+    rows_ok = (int(keep_c.sum()) == max_points and bool(mask_np[order].all())
+               and np.array_equal(out_c[:max_points].numpy(), xyz_np[order]))
+    print(f"(e) random_downsample to {max_points} of {int(mask_np.sum())} rows: draw "
+          f"{draw_ms:.2f} ms, keep {ds_ms:.3f} ms a call (events); {dev} == CPU on the same "
+          f"bits: {same}; exactly {int(keep_c.sum())} kept, the stable argsort's rows: "
+          f"{rows_ok}  [{smi}]")
+    if not same or not rows_ok:
+        raise AssertionError("(e) random_downsample: card != CPU or wrong rows")
+    results["e"] = dict(downsample=dict(rows=max_points, draw_ms=draw_ms, ms=ds_ms))
+
+    # RANSAC: the card against the CPU on the same triples
+    pick = np.sort(np.random.default_rng(SEED).choice(len(pts), RANSAC_CPU_ROWS, replace=False))
+    sub_c, sub_m = xyz_c[pick], mask_c[pick]
+    sub_g, sub_mg = sub_c.to(dev), sub_m.to(dev)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    ransac = {}
+    for name, thresh in (("ransac_plane", 0.3), ("remove_ground_ransac", 0.5)):
+        idx = ground.draw_triples(sub_m, 256, cpu_gen)
+        pg = ground._best_plane(sub_g, sub_mg, idx.to(dev), thresh)
+        pc = ground._best_plane(sub_c, sub_m, idx, thresh)
+        ransac[name] = dict(best=(int(pg[3]), int(pc[3])),
+                            normal_diff=float((pg[0].cpu() - pc[0]).abs().max()),
+                            score_diff=int((pg[4].cpu() - pc[4]).abs().max()),
+                            inliers_differ=int((pg[2].cpu() != pc[2]).sum()))
+    tidx = ground.draw_tile_triples(sub_c, sub_m, 8, 64, cpu_gen)
+    tg = ground.tile_planes(sub_g, sub_mg, tidx.to(dev), 0.5, 8)
+    tc = ground.tile_planes(sub_c, sub_m, tidx, 0.5, 8)
+    keep_tg = ground.remove_ground_tiled_ransac_from_indices(sub_g, sub_mg, tidx.to(dev), 0.5, 8)
+    keep_tc = ground.remove_ground_tiled_ransac_from_indices(sub_c, sub_m, tidx, 0.5, 8)
+    ransac["remove_ground_tiled_ransac"] = dict(
+        best_differ=int((tg[3].cpu() != tc[3]).sum()),
+        normal_diff=float((tg[1].cpu() - tc[1]).abs().max()),
+        keep_differ=int((keep_tg.cpu() != keep_tc).sum()))
+    print(f"(e) RANSAC on {RANSAC_CPU_ROWS} rows, {dev} vs CPU on the same triples: {ransac}")
+    if (any(r["best"][0] != r["best"][1] or r["normal_diff"] > 1e-6
+            for k, r in ransac.items() if "best" in r)
+            or ransac["remove_ground_tiled_ransac"]["best_differ"]
+            or ransac["remove_ground_tiled_ransac"]["normal_diff"] > 1e-6):
+        raise AssertionError(f"(e) RANSAC: the card picks other planes than the CPU: {ransac}")
+
+    # RANSAC on the whole tile, on the card
+    towers_at = n_ground + n_veg + per_tower * np.arange(len(centers))
+    for name, fn in (("remove_ground_ransac",
+                      lambda: ground.remove_ground_ransac(xyz_g, mask_g, gen, 0.5, 256)[0]),
+                     ("remove_ground_tiled_ransac",
+                      lambda: ground.remove_ground_tiled_ransac(xyz_g, mask_g, gen, grid=8,
+                                                                num_hypotheses=64))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ms, keep = ms_of(fn)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        keep = keep.cpu().numpy()
+        removed = 1.0 - float(keep[:n_ground].mean())
+        tower_kept = [float(keep[s:s + per_tower].mean()) for s in towers_at]
+        ransac[name + "_4M"] = dict(wall_ms=ms, ground_removed=removed,
+                                    tower_kept_min=min(tower_kept), peak_bytes=peak)
+        print(f"(e) {name} on {N_POINTS} rows: wall {ms:.1f} ms, ground rows removed "
+              f"{100 * removed:.2f} %, each tower's rows kept at least "
+              f"{100 * min(tower_kept):.2f} %, peak allocated {peak / 2**20:.1f} MiB  [{smi}]")
+        if removed < 0.5 or min(tower_kept) < 0.95 or peak > RANSAC_PEAK_BOUND:
+            raise AssertionError(f"(e) {name}: {removed} of the ground removed, a tower "
+                                 f"{min(tower_kept)} kept, peak {peak} bytes")
+    results["e"]["ransac"] = ransac
+
+    # segment rows on the tile's sorted 8 m cell keys: the card vs the plain
+    # versions (their segscan calls go to phase 3)
+    cell = np.floor(xyz_np[:, :2] / 8.0).astype(np.int64)
+    key = (cell[:, 0] - cell[:, 0].min()) * (1 << 20) + (cell[:, 1] - cell[:, 1].min())
+    order = np.argsort(np.where(mask_np, key, key.max() + 1), kind="stable")
+    keys_g = torch.from_numpy(key[order]).to(dev)
+    vals_g = torch.from_numpy(xyz_np[order]).to(dev)
+
+    def seg_rows(k, v):
+        start = segments.boundary_flags(k)
+        _, nxt = segments.segment_spans(start)
+        return (segments.segment_sum_rows(v, start, nxt), segments.segment_max_rows(v, start),
+                segments.segment_min_rows(v, start))
+
+    calls["viewer_segments"] = []
+    with no_plain_versions(kernel_modules), kernel_calls(calls["viewer_segments"]):
+        reset_counts()
+        seg_ms, got = ms_of(lambda: seg_rows(keys_g, vals_g))
+        launches["viewer_segments"] = read_counts(("segscan",), "(e) segment rows")
+    # the same functions on the same card tensors through segscan's plain
+    # version, and the summation bound from plain scans
+    kernel = segscan.segmented_scan
+    segscan.segmented_scan = segscan.segmented_scan_plain
+    try:
+        ref = seg_rows(keys_g, vals_g)
+        start_p = segments.boundary_flags(keys_g)
+        first, nxt_p = segments.segment_spans(start_p)
+        k_rows = (nxt_p - first).double()[:, None]
+        mag = segments.segment_sum_rows(vals_g.abs(), start_p, nxt_p).double()
+    finally:
+        segscan.segmented_scan = kernel
+    d_sum = (got[0].double() - ref[0].double()).abs()
+    seg_ok = (bool((d_sum <= k_rows * 2.0 ** -23 * mag).all())
+              and torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]))
+    print(f"(e) segment_sum/max/min_rows over {N_POINTS} rows in {int(start_p.sum())} cells: "
+          f"{dev} vs the plain versions: max and min identical, sums within "
+          f"{float(d_sum.max()):.3g} (bound k 2**-23 sum|v|): {seg_ok}; wall {seg_ms:.2f} ms, "
+          f"segscan launches {launches['viewer_segments']['segscan']}")
+    if not seg_ok:
+        raise AssertionError("(e) segment rows: the card differs from the plain versions")
+    results["e"]["segments"] = dict(wall_ms=seg_ms, cells=int(start_p.sum()),
+                                    sum_err=float(d_sum.max()))
+    results["wall_s"] = time.perf_counter() - phase_t0
+    print(f"12. phase wall {results['wall_s']:.1f} s  [{smi}]")
+    return results, launches, calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1967,6 +2336,13 @@ def main() -> int:
     # (gloo) against 1 rank (nccl), and the card against the CPU
     sharded, sharded_launches, sharded_calls = sharded_phase(dev, smi)
     launches.update(sharded_launches)
+
+    # ---- 12. the viewers (render, export-scene, viz-export), the elevation
+    # report and the library functions (random_downsample, RANSAC, segment
+    # rows) on phase 9's files and the 4M tile
+    viewers, viewer_launches, viewer_calls = viewer_phase(
+        dev, pts, centers, reset_counts, read_counts, kernel_modules, profile_iteration, smi)
+    launches.update(viewer_launches)
 
     # ---- 3. each kernel vs its plain version at the paths' shapes.
     # Exact path: inputs as extract_from_points pads them; capacities as
@@ -2543,9 +2919,12 @@ def main() -> int:
         replay(f"{tile} (10d)", calls)
     for mode_key, calls in sharded_calls.items():
         replay(f"{mode_key} (11, rank 0 of {SHARDED_RANKS})", to_device(calls, dev))
-    captured = {**stream_calls, **sharded_calls}
+    for key, calls in viewer_calls.items():
+        replay(f"{key} (12e)", calls)
+    captured = {**stream_calls, **sharded_calls, **viewer_calls}
     paths = {"stream_fast": FAST_PATH, "stream_modular": MODULAR_GRID_PATH,
-             **{key: SHARDED_PATH[key.split("_", 1)[1]] for key in sharded_calls}}
+             **{key: SHARDED_PATH[key.split("_", 1)[1]] for key in sharded_calls},
+             "viewer_segments": ("segscan",)}
     missing = [(key, name) for key, path in paths.items() for name in path
                if name not in {c[0] for c in captured[key]}]
     if missing:
@@ -2580,7 +2959,7 @@ def main() -> int:
         bench_precut_div=precut_div, bench=bench, bench_profile=profile,
         sort_modes=sort_modes, mergesort_parts=mergesort_parts, modular=modular,
         cluster_converge_row_order=order_ms, gim_workflow=gim,
-        registration_streaming=phase10, sharded=sharded,
+        registration_streaming=phase10, sharded=sharded, viewers=viewers,
     )))
     print(json.dumps(dict(kernels=entries)))
     print(json.dumps(dict(

@@ -7,8 +7,11 @@ Each takes the JAX package's arguments and defaults
 (``pointcloudhookup_tpu/cli.py``) plus ``--device``: ``correct --icp``
 refines the matched towers by batched ICP, ``register`` aligns each matched
 tower's points from its GIM position, and ``stream-extract`` runs the
-extraction over streamed tiles.  A missing file or a bad value exits with
-code 2.
+extraction over streamed tiles.  The viewers (``viz-export``,
+``export-scene``, ``render``) extract on the device and write tower
+wireframes as JSON, a coloured PLY/LAS/LAZ scene or a PNG;
+``elevation-report`` converts the GIM towers' heights on the host.  A
+missing file or a bad value exits with code 2.
 """
 
 from __future__ import annotations
@@ -124,19 +127,27 @@ def cmd_extract(args):
         )
 
 
-def _extract_with_labels(args):
-    """One extraction that yields the towers and each point's label, so
-    ``labels == t.label`` selects exactly t's members.  Returns (points
-    f64[N, 3], towers, labels int[N])."""
+def _towers_and_labels(args, pts):
+    """One extraction of pts on args.device that yields the towers and each
+    point's label, so ``labels == t.label`` selects exactly t's members.
+    Returns (towers, labels int[N])."""
     from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams
-    from pointcloudhookup_tpu_torch.io.las import read_las
     from pointcloudhookup_tpu_torch.models.pipeline import extract_from_points
 
-    pts = read_las(args.las).xyz()
     params = ExtractParams(cluster=ClusterParams(eps=args.eps, min_points=args.min_points))
     towers, stats, _origin = extract_from_points(pts, params, device=args.device)
+    return towers, stats["labels"][: len(pts)]
+
+
+def _extract_with_labels(args):
+    """_towers_and_labels of args.las's points.  Returns (points f64[N, 3],
+    towers, labels int[N])."""
+    from pointcloudhookup_tpu_torch.io.las import read_las
+
+    pts = read_las(args.las).xyz()
+    towers, labels = _towers_and_labels(args, pts)
     print(f"extraction complete: {len(towers)} towers")
-    return pts, towers, stats["labels"][: len(pts)]
+    return pts, towers, labels
 
 
 def cmd_match(args, corrected: bool = False):
@@ -180,6 +191,106 @@ def cmd_reproject(args):
 
     n = reproject_las(args.input, args.output, log_callback=print, device=args.device)
     print(f"{n} points reprojected")
+
+
+def cmd_viz_export(args):
+    from pointcloudhookup_tpu_torch.models.pipeline import extract
+    from pointcloudhookup_tpu_torch.viz.boxes import (
+        export_geometries_json,
+        tower_display_geometries,
+    )
+
+    towers = extract(args.las, log_callback=print, eps=args.eps, min_points=args.min_points,
+                     device=args.device)
+    geoms = tower_display_geometries(
+        towers,
+        method="kuangxuan" if args.preset.startswith("kuangxuan") else "symmetric",
+        preset=args.preset,
+    )
+    export_geometries_json(geoms, args.output)
+    print(f"{len(geoms)} tower boxes -> {args.output}")
+
+
+def cmd_export_scene(args):
+    """LAS (+ extraction) -> a coloured PLY scene (points and tower
+    wireframes as edge elements) or a coloured LAS/LAZ of the points."""
+    from pointcloudhookup_tpu_torch.io.las import read_las
+    from pointcloudhookup_tpu_torch.viz.boxes import tower_display_geometries
+    from pointcloudhookup_tpu_torch.viz.export import export_scene_las, export_scene_ply
+
+    pts = read_las(args.las).xyz()
+    las_out = args.output.lower().endswith((".las", ".laz"))
+    labels, accepted, geoms = None, None, []
+    if args.towers:
+        towers, labels = _towers_and_labels(args, pts)
+        accepted = [t.label for t in towers]
+        if las_out:
+            if towers:
+                print(
+                    "note: tower wireframes are not representable in "
+                    "LAS/LAZ — use a .ply output to get box edges"
+                )
+        else:
+            geoms = tower_display_geometries(towers, preset=args.preset)
+        print(f"{len(towers)} tower boxes")
+    if las_out:
+        summary = export_scene_las(
+            args.output, pts, labels=labels, accepted_labels=accepted,
+            display_cap=args.display_cap,
+        )
+    else:
+        summary = export_scene_ply(
+            args.output, pts, labels=labels, accepted_labels=accepted,
+            geoms=geoms, display_cap=args.display_cap,
+        )
+    print(
+        f"scene -> {args.output} ({summary['vertices']} vertices, "
+        f"{summary['edges']} wireframe edges)"
+    )
+
+
+def cmd_render(args):
+    """Offscreen render: LAS (+ extracted tower boxes) -> PNG, projected
+    and z-buffered on args.device."""
+    from pointcloudhookup_tpu_torch.io.las import read_las
+    from pointcloudhookup_tpu_torch.viz.boxes import tower_display_geometries
+    from pointcloudhookup_tpu_torch.viz.render import render_to_png
+
+    pts = read_las(args.las).xyz()
+    geoms = []
+    if args.towers:
+        towers, _ = _towers_and_labels(args, pts)
+        geoms = tower_display_geometries(towers, preset=args.preset)
+        print(f"{len(geoms)} tower boxes")
+    render_to_png(
+        pts, geoms, args.output, width=args.width, height=args.height,
+        display_cap=args.display_cap, device=args.device,
+    )
+    print(f"scene -> {args.output}")
+
+
+def cmd_elevation_report(args):
+    from pointcloudhookup_tpu_torch.models.elevation_report import (
+        convert_to_orthometric,
+        write_report,
+    )
+    from pointcloudhookup_tpu_torch.models.pipeline import import_gim
+
+    records, _, _ = import_gim(args.gim, args.output_folder)
+    geoid = None
+    if args.geoid:
+        from pointcloudhookup_tpu_torch.io.geoid import load_geoid
+
+        geoid = load_geoid(args.geoid)
+    towers = [
+        dict(id=(r.properties or {}).get("杆塔编号", r.name), lat=r.lat, lon=r.lng, h=r.h)
+        for r in records
+    ]
+    rows = convert_to_orthometric(towers, geoid=geoid, empirical_n=args.empirical_n)
+    report = write_report(
+        rows, csv_path=args.csv, text_path=args.text, chart_path=args.chart
+    )
+    print(report)
 
 
 def cmd_register(args):
@@ -376,6 +487,50 @@ def main(argv=None):
     sp.add_argument("output")
     add_device(sp)
     sp.set_defaults(fn=cmd_reproject)
+
+    sp = sub.add_parser("viz-export", help="export enlarged tower wireframes as JSON")
+    sp.add_argument("las")
+    sp.add_argument("output")
+    add_extract_args(sp)
+    sp.add_argument("--preset", default="kuangxuan_original")
+    sp.set_defaults(fn=cmd_viz_export)
+
+    def add_scene_args(sp):
+        sp.add_argument("--eps", type=float, default=8.0)
+        sp.add_argument("--min-points", type=int, default=80)
+        sp.add_argument("--preset", default="kuangxuan_original")
+        sp.add_argument("--display-cap", type=int, default=500_000)
+        add_device(sp)
+
+    sp = sub.add_parser("export-scene", help="export a colored PLY scene (points + tower "
+                        "wireframes) for external viewers")
+    sp.add_argument("las")
+    sp.add_argument("output")
+    sp.add_argument("--towers", action="store_true",
+                    help="extract + color clusters + wireframes")
+    add_scene_args(sp)
+    sp.set_defaults(fn=cmd_export_scene)
+
+    sp = sub.add_parser("render", help="offscreen render of a LAS scene (+ tower boxes) to PNG")
+    sp.add_argument("las")
+    sp.add_argument("output")
+    sp.add_argument("--towers", action="store_true", help="extract + overlay tower boxes")
+    sp.add_argument("--width", type=int, default=1280)
+    sp.add_argument("--height", type=int, default=960)
+    add_scene_args(sp)
+    sp.set_defaults(fn=cmd_render)
+
+    sp = sub.add_parser("elevation-report",
+                        help="ellipsoid->orthometric conversion report for GIM towers "
+                             "(host work only: it takes no --device)")
+    sp.add_argument("gim")
+    sp.add_argument("--geoid", help=".gtx or .npz geoid grid")
+    sp.add_argument("--empirical-n", type=float, default=28.0)
+    sp.add_argument("--csv")
+    sp.add_argument("--text")
+    sp.add_argument("--chart", help="bar chart image (needs matplotlib; skipped without it)")
+    sp.add_argument("--output-folder", default="output")
+    sp.set_defaults(fn=cmd_elevation_report)
 
     sp = sub.add_parser("register", help="batched ICP alignment of matched towers")
     sp.add_argument("gim")

@@ -1,9 +1,11 @@
-"""LAZ (LASzip-compressed LAS) reading.
+"""LAZ (LASzip-compressed LAS) reading and writing.
 
-Copy of the read path of ``pointcloudhookup_tpu/io/laz.py``: the LASzip
-VLR (user id "laszip encoded", record 22204), the 8-byte chunk-table
-pointer at the start of the point-data section, and LasData assembly
-around the native point decoder (``native/laz_codec.cpp``).
+Copy of ``pointcloudhookup_tpu/io/laz.py``: the LASzip VLR (user id
+"laszip encoded", record 22204), the 8-byte chunk-table pointer at the
+start of the point-data section, and LasData assembly around the native
+point codec (``native/laz_codec.cpp``: ``laz_decode_points[14]`` and
+``laz_encode_points[14]``).  ``write_laz`` writes the JAX package's bytes
+for the same ``LasData``.
 
 Supported:
   * point formats 0-3 (POINT10 + GPSTIME11 + RGB12, item v2,
@@ -19,13 +21,17 @@ Supported:
 from __future__ import annotations
 
 import ctypes
+import os
 import struct
+import tempfile
 
 import numpy as np
 
-from pointcloudhookup_tpu_torch.io.las import POINT_DTYPES, LasData
+from pointcloudhookup_tpu_torch.io.las import POINT_DTYPES, LasData, write_las
 
+LASZIP_USER_ID = b"laszip encoded\x00\x00"
 LASZIP_RECORD_ID = 22204
+DEFAULT_CHUNK_SIZE = 50000
 
 _ITEM_POINT10 = 6
 _ITEM_GPSTIME11 = 7
@@ -66,6 +72,32 @@ def _codec():
             "decompress the file externally or install a compiler"
         )
     return lib
+
+
+def build_laszip_vlr(point_format: int, chunk_size: int = DEFAULT_CHUNK_SIZE) -> bytes:
+    """The LASzip VLR (54-byte header + record payload)."""
+    items = _FMT_ITEMS[point_format]
+    ver = _fmt_item_version(point_format)
+    payload = struct.pack(
+        "<HHBBHIIqqH",
+        _fmt_compressor(point_format),  # 2 chunked / 3 layered chunked
+        0,  # coder: arithmetic
+        3 if ver == 3 else 2,  # version major
+        4,  # version minor
+        0,  # revision
+        0,  # options
+        chunk_size,
+        -1,  # number of special evlrs
+        -1,  # offset of special evlrs
+        len(items),
+    )
+    for typ, size in items:
+        payload += struct.pack("<HHH", typ, size, ver)
+    # the JAX package's writer names itself in the description field; the
+    # same bytes keep the two packages' .laz files identical
+    header = struct.pack("<H16sHH32s", 0, LASZIP_USER_ID, LASZIP_RECORD_ID,
+                         len(payload), b"pointcloudhookup_tpu laz")
+    return header + payload
 
 
 def _is_laszip_vlr(user_id: bytes, record_id: int) -> bool:
@@ -159,6 +191,68 @@ def decode_point_section(
     if got != count:
         raise ValueError(f"LAZ decode failed (decoded {got} of {count} points)")
     return out
+
+
+def encode_point_section(records: np.ndarray, fmt: int,
+                         chunk_size: int = DEFAULT_CHUNK_SIZE) -> tuple[bytes, int]:
+    """Compress raw point records u8[n, record_len]; returns
+    (section bytes WITHOUT the table-offset field, table_rel)."""
+    lib = _codec()
+    records = np.ascontiguousarray(records, np.uint8)
+    n, record_len = records.shape
+    encode = lib.laz_encode_points14 if fmt >= 6 else lib.laz_encode_points
+    table_rel = ctypes.c_longlong()
+
+    def run(cap):
+        out = np.empty(cap, np.uint8)
+        size = encode(
+            records.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), n, fmt, chunk_size,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), cap, ctypes.byref(table_rel),
+        )
+        return out, size
+
+    out, size = run(int(n * record_len + (n // chunk_size + 2) * 128 + 4096))
+    if size == -2:
+        # pathological expansion: retry with the worst-case cap
+        out, size = run(int(n * record_len * 3 + (n // chunk_size + 2) * 128 + 65536))
+    if size < 0:
+        raise ValueError(f"LAZ encode failed (rc={size})")
+    return out[:size].tobytes(), int(table_rel.value)
+
+
+def write_laz(las: LasData, path, chunk_size: int = DEFAULT_CHUNK_SIZE) -> None:
+    """Write a LasData as .laz (formats 0-3 chunked v2; 6-10 layered v3):
+    the uncompressed image's header with the format's 0x80 bit set, its
+    VLRs plus the LASzip VLR, then [table offset i64][chunks][table]."""
+    fmt = las.point_format
+    if fmt not in _FMT_ITEMS:
+        raise ValueError(f"LAZ write supports point formats 0-3 and 6-10, got {fmt}")
+    fd, tmp = tempfile.mkstemp(suffix=".las")
+    os.close(fd)
+    try:
+        write_las(las, tmp)
+        with open(tmp, "rb") as f:
+            img = f.read()
+    finally:
+        os.unlink(tmp)
+    header_size, point_offset, num_vlrs = struct.unpack_from("<HII", img, 94)
+    record_len = struct.unpack_from("<H", img, 105)[0]
+    vlr = build_laszip_vlr(fmt, chunk_size)
+    records = np.frombuffer(
+        img, np.uint8, len(las.points) * record_len, point_offset
+    ).reshape(len(las.points), record_len)
+    section, table_rel = encode_point_section(records, fmt, chunk_size)
+
+    header = bytearray(img[:header_size])
+    header[104] = fmt | 0x80
+    new_point_offset = point_offset + len(vlr)
+    struct.pack_into("<HII", header, 94, header_size, new_point_offset, num_vlrs + 1)
+    with open(path, "wb") as f:
+        f.write(bytes(header))
+        f.write(img[header_size:point_offset])  # existing VLRs
+        f.write(vlr)
+        f.write(struct.pack("<q", new_point_offset + 8 + table_rel))
+        f.write(section)
 
 
 def read_laz_bytes(data: bytes, path_for_err: str = "<bytes>") -> LasData:

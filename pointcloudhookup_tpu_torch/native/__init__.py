@@ -2,12 +2,12 @@
 
 Counterpart of ``pointcloudhookup_tpu/native/__init__.py``: the LAS xyz
 decoder of the tile streamer (``las_codec.cpp``: ``las_probe``,
-``las_read_xyz``, ``las_read_xyz_range``) and the LAZ point decoder that
-``io/laz.py`` needs (``laz_codec.cpp``).  Each compiles with g++ on first
-use into ``<repo>/build/native/``, keyed by a hash of the source, never
-next to the source.  Without a compiler the LAS functions return None (the
-caller reads with ``io/las.py``), ``get_laz_lib`` returns None and reading
-a .laz file raises.
+``las_read_xyz``, ``las_read_xyz_range``) and the LAZ point codec that
+``io/laz.py`` reads and writes with (``laz_codec.cpp``).  Each compiles
+with g++ on first use into ``<repo>/build/native/``, keyed by a hash of the
+source, never next to the source.  Without a compiler the LAS functions
+return None (the caller reads with ``io/las.py``), ``get_laz_lib`` returns
+None and reading or writing a .laz file raises.
 """
 
 from __future__ import annotations
@@ -108,10 +108,22 @@ def get_laz_lib() -> Optional[ctypes.CDLL]:
             ctypes.c_uint,
             ctypes.POINTER(ctypes.c_ubyte),
         ]
+        encode_args = [
+            ctypes.POINTER(ctypes.c_ubyte),
+            ctypes.c_longlong,
+            ctypes.c_int,
+            ctypes.c_uint,
+            ctypes.POINTER(ctypes.c_ubyte),
+            ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_longlong),
+        ]
         # formats 0-3 (compressor 2) and the LAS 1.4 layered 6-10 (3)
-        for fn in (lib.laz_decode_points, lib.laz_decode_points14):
+        for fn, args in ((lib.laz_decode_points, decode_args),
+                         (lib.laz_decode_points14, decode_args),
+                         (lib.laz_encode_points, encode_args),
+                         (lib.laz_encode_points14, encode_args)):
             fn.restype = ctypes.c_longlong
-            fn.argtypes = decode_args
+            fn.argtypes = args
         _laz_lib = lib
         return _laz_lib
 

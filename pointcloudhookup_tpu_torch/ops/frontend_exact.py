@@ -28,7 +28,6 @@ import math
 import torch
 
 from pointcloudhookup_tpu_torch.config import ExtractParams
-from pointcloudhookup_tpu_torch.models.towers import filter_and_dedup
 from pointcloudhookup_tpu_torch.ops.cluster import compact_labels
 from pointcloudhookup_tpu_torch.ops.kernels.cluster_converge import cluster_cells
 from pointcloudhookup_tpu_torch.ops.kernels.compactrows import compact_rows_multi
@@ -292,6 +291,9 @@ def exact_extract_graph(
         num_angles=params.obb_angles,
     )
     stats = _obb_from_accum(acc, params.max_clusters, params.obb_angles)
+    # models.towers imports the ops package, which imports this module
+    from pointcloudhookup_tpu_torch.models.towers import filter_and_dedup
+
     accepted = filter_and_dedup(stats, params.filters)
 
     cells_overflow = torch.clamp(n_dense - m, min=0).to(f32) + compact_over

@@ -52,7 +52,6 @@ import numpy as np
 import torch
 
 from pointcloudhookup_tpu_torch.config import ExtractParams
-from pointcloudhookup_tpu_torch.models.towers import filter_and_dedup
 from pointcloudhookup_tpu_torch.ops.cluster import compact_labels
 from pointcloudhookup_tpu_torch.ops.frontend_exact import _core_flood_cluster
 from pointcloudhookup_tpu_torch.ops.kernels.cluster_converge import cluster_cells
@@ -568,6 +567,9 @@ def fused_extract_step(
     voxels (geometric_voxels=False) take the reference's branch: the
     default sort, no pre-cut, and the sort-based OBB over the voxel
     centroids (cluster_obb_stats), with ds_xyz in the result."""
+    # models.towers imports the ops package, which imports this module
+    from pointcloudhookup_tpu_torch.models.towers import filter_and_dedup
+
     if obb not in ("auto", "accum", "sort"):
         raise ValueError(f"obb must be 'auto', 'accum' or 'sort', got {obb!r}")
     if obb == "auto":

@@ -367,3 +367,107 @@ def test_cli_stream_extract_matches_jax(workspace, capsys, tmp_path, fast):
     assert got[0].startswith("governor: ") and got[0].endswith("(explicit --capacity)")
     assert got[1] == ref[1] == f"{2 * len(centers)} towers across 2 tiles (capacity 8,192)"
     _same_lines(got[2:], ref[2:], 1.1e-2)
+
+
+@pytest.mark.parametrize("preset", ["kuangxuan_original", "symmetric_moderate"])
+def test_cli_viz_export_matches_jax(workspace, capsys, tmp_path, preset):
+    """``viz-export``: the wireframe JSON is the JAX CLI's, byte for byte
+    (the towers' geometry is, as in test_extract_table_matches_jax)."""
+    tmp, las, gim, centers = workspace
+    args = ["--eps", "5", "--min-points", "30", "--preset", preset]
+    main(["viz-export", las, str(tmp_path / "t.json")] + args + CPU)
+    assert f"{len(centers)} tower boxes" in capsys.readouterr().out
+    jmain(["viz-export", las, str(tmp_path / "j.json")] + args)
+    assert (tmp_path / "t.json").read_bytes() == (tmp_path / "j.json").read_bytes()
+    boxes = json.loads((tmp_path / "t.json").read_text())
+    assert len(boxes) == len(centers) and all(len(b["points"]) == 24 for b in boxes)
+
+
+@pytest.mark.parametrize("out,towers", [("ply", True), ("ply", False), ("laz", True),
+                                        ("las", False)])
+def test_cli_export_scene_matches_jax(workspace, capsys, tmp_path, out, towers):
+    """``export-scene``: the PLY (points, cluster colours, wireframes) or the
+    coloured LAS/LAZ is the JAX CLI's, byte for byte."""
+    from pointcloudhookup_tpu_torch.viz.export import read_ply_scene
+
+    tmp, las, gim, centers = workspace
+    args = ["--eps", "5", "--min-points", "30"] + (["--towers"] if towers else [])
+    main(["export-scene", las, str(tmp_path / f"t.{out}")] + args + CPU)
+    got = capsys.readouterr().out
+    jmain(["export-scene", las, str(tmp_path / f"j.{out}")] + args)
+    ref = capsys.readouterr().out
+    assert got.replace("t.", "j.") == ref
+    assert (tmp_path / f"t.{out}").read_bytes() == (tmp_path / f"j.{out}").read_bytes()
+    if out == "ply":
+        xyz, rgb, edges = read_ply_scene(str(tmp_path / "t.ply"))
+        n = len(read_las(las))
+        assert len(xyz) == n + (24 * len(centers) if towers else 0)
+        assert len(edges) == (12 * len(centers) if towers else 0)
+    else:
+        scene = read_las(str(tmp_path / f"t.{out}"))
+        np.testing.assert_allclose(scene.xyz(), read_las(las).xyz(), atol=1e-3)
+
+
+def test_cli_render_matches_jax(workspace, capsys, tmp_path):
+    """``render --towers``: the PNG, decoded, is the JAX CLI's image pixel for
+    pixel (any differing pixel is counted and reported)."""
+    Image = pytest.importorskip("PIL.Image")
+    from pointcloudhookup_tpu_torch.viz.render import read_png
+
+    tmp, las, gim, centers = workspace
+    args = ["--towers", "--eps", "5", "--min-points", "30", "--width", "400", "--height",
+            "300"]
+    main(["render", las, str(tmp_path / "t.png")] + args + CPU)
+    assert f"{len(centers)} tower boxes" in capsys.readouterr().out
+    jmain(["render", las, str(tmp_path / "j.png")] + args)
+    got = read_png(str(tmp_path / "t.png"))
+    ref = np.asarray(Image.open(tmp_path / "j.png"))
+    differ = int((got != ref).any(axis=2).sum())
+    print(f"render: {differ} of {got.shape[0] * got.shape[1]} pixels differ from the JAX CLI")
+    assert got.shape == (300, 400, 3) and differ == 0
+    assert np.array_equal(np.asarray(Image.open(tmp_path / "t.png")), got)
+    assert ((got == [255, 0, 0]).all(axis=2)).sum() > 100  # the red tower boxes
+
+
+@pytest.mark.parametrize("grid", [True, False], ids=["geoid", "empirical"])
+def test_cli_elevation_report_matches_jax(workspace, capsys, tmp_path, grid):
+    """``elevation-report`` (no --device: host work only): the printed
+    report, the CSV and the text report are the JAX CLI's bytes, with a
+    .gtx grid written by the port's save_gtx and with the empirical N."""
+    from pointcloudhookup_tpu_torch.io.geoid import save_gtx
+    from pointcloudhookup_tpu_torch.ops.geo import GeoidGrid
+
+    tmp, las, gim, centers = workspace
+    args = ["--empirical-n", "27.5"]
+    if grid:
+        lat, lon = np.meshgrid(np.arange(17) * 0.25 + 26.2, np.arange(17) * 0.25 + 111.5,
+                               indexing="ij")
+        save_gtx(GeoidGrid(26.2, 111.5, 0.25, 0.25, (-20.0 + 0.8 * (lat - 28.0)
+                                                    - 0.5 * (lon - 113.0)).astype(np.float32)),
+                 str(tmp_path / "g.gtx"))
+        args += ["--geoid", str(tmp_path / "g.gtx")]
+    outs = {}
+    for tag, fn in (("t", main), ("j", jmain)):
+        fn(["elevation-report", gim, "--csv", str(tmp_path / f"{tag}.csv"), "--text",
+            str(tmp_path / f"{tag}.txt"), "--output-folder", str(tmp_path / tag)] + args)
+        outs[tag] = capsys.readouterr().out
+    assert outs["t"] == outs["j"]
+    assert (tmp_path / "t.csv").read_bytes() == (tmp_path / "j.csv").read_bytes()
+    assert (tmp_path / "t.txt").read_bytes() == (tmp_path / "j.txt").read_bytes()
+    rows = (tmp_path / "t.csv").read_text().splitlines()
+    assert len(rows) == len(centers) + 1
+    assert rows[1].endswith("geoid_grid" if grid else "empirical_n")
+    with pytest.raises(SystemExit):
+        main(["elevation-report", gim, "--device", "cpu"])
+
+
+def test_cli_lists_every_jax_command(capsys):
+    """The port's CLI has every command of the JAX package's."""
+    def commands(fn):
+        with pytest.raises(SystemExit):
+            fn(["--help"])
+        text = capsys.readouterr().out
+        return set(re.search(r"\{([a-z,-]+)\}", text).group(1).split(","))
+
+    ref = commands(jmain)
+    assert len(ref) == 14 and commands(main) == ref

@@ -1644,3 +1644,107 @@ def test_fragment_union_and_halo_make_no_host_sync(cuda):
     ref_ext = _halo_exchange(xyz_t.cpu(), mask_t.cpu(), _TwoRanksLocal(), 10.0, 2048)
     for got, want in zip((ext, ext_mask, is_local, over), ref_ext):
         assert torch.equal(got.cpu(), want)
+
+
+# ------------------------------------------------------------------
+# The library functions and the renderer on the card against the CPU
+
+
+@pytest.mark.cuda
+def test_render_scene_cuda_pixel_identical_to_cpu(cuda):
+    """The projection's f64 dot products are three products summed in one
+    order and the divisions are true divisions, so the card's image is the
+    CPU's, duplicate pixels and overlapping edges included."""
+    from pointcloudhookup_tpu_torch.viz.boxes import tower_display_geometries
+    from pointcloudhookup_tpu_torch.viz.render import render_scene
+
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.uniform([-200, -40, 0], [200, 40, 3], (60000, 3)),
+                          np.repeat(rng.normal([0, 0, 20], 5, (500, 3)), 4, axis=0)])
+    towers = [dict(center=rng.uniform([-150, -20, 10], [150, 20, 30]), extent=[8.0, 6.0, 40.0],
+                   width=8.0, height=40.0, angle=0.4) for _ in range(5)]
+    geoms = tower_display_geometries(towers)
+    geoms[1] = (geoms[1][0], (0.0, 1.0, 0.0))
+    for kw in (dict(), dict(display_cap=20000, seed=3)):
+        got = render_scene(pts, geoms, width=640, height=480, device=cuda, **kw)
+        ref = render_scene(pts, geoms, width=640, height=480, device="cpu", **kw)
+        assert np.array_equal(got, ref), int((got != ref).any(axis=2).sum())
+
+
+@pytest.mark.cuda
+def test_random_downsample_from_bits_cuda_matches_cpu(cuda):
+    from pointcloudhookup_tpu_torch.ops.sample import random_bits, random_downsample_from_bits
+
+    rng = np.random.default_rng(1)
+    n = 1 << 20
+    xyz = rng.uniform(-500, 500, (n, 3)).astype(np.float32)
+    mask = rng.random(n) < 0.9
+    bits = random_bits(n, torch.Generator().manual_seed(2))
+    for cap in (1000, 500_000, n):
+        got = random_downsample_from_bits(t(xyz, cuda), t(mask, cuda), bits.to(cuda), cap)
+        ref = random_downsample_from_bits(t(xyz), t(mask), bits, cap)
+        assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+        assert int(got[1].sum()) == min(cap, int(mask.sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [64, 256])
+def test_ransac_plane_from_indices_cuda_matches_cpu(cuda, h):
+    """The same triples pick the same plane on the card (scores from a full
+    float32 cuBLAS product, never TF32); normals within 1e-6."""
+    from pointcloudhookup_tpu_torch.ops import ground
+
+    rng = np.random.default_rng(h)
+    n = 131_072
+    xy = rng.uniform(-300, 300, (n, 2))
+    z = 0.5 * np.sin(xy[:, 0] / 90.0) + rng.normal(0, 0.05, n)
+    xyz = np.column_stack([xy, z]).astype(np.float32)
+    xyz[-5000:, 2] += rng.uniform(3, 40, 5000).astype(np.float32)
+    mask = np.ones(n, bool)
+    idx = ground.draw_triples(t(mask), h, torch.Generator().manual_seed(5))
+    got = ground._best_plane(t(xyz, cuda), t(mask, cuda), idx.to(cuda), 0.5)
+    ref = ground._best_plane(t(xyz), t(mask), idx, 0.5)
+    assert int(got[3]) == int(ref[3])
+    assert float((got[0].cpu() - ref[0]).abs().max()) <= 1e-6
+    assert int((got[4].cpu() - ref[4]).abs().max()) <= 2
+    keep_g = ground.remove_ground_tiled_ransac_from_indices(
+        t(xyz, cuda), t(mask, cuda), ground.draw_tile_triples(
+            t(xyz), t(mask), 8, 64, torch.Generator().manual_seed(6)).to(cuda), 0.5, 8)
+    keep_c = ground.remove_ground_tiled_ransac_from_indices(
+        t(xyz), t(mask), ground.draw_tile_triples(
+            t(xyz), t(mask), 8, 64, torch.Generator().manual_seed(6)), 0.5, 8)
+    assert int((keep_g.cpu() != keep_c).sum()) <= 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_segment_rows_cuda_match_plain(cuda, dtype):
+    """segment_{sum,max,min}_rows on the card (the segscan kernel) against
+    the CPU's plain scans: integers, max and min identical, float sums
+    within the f32 summation bound."""
+    from pointcloudhookup_tpu_torch.ops import segments
+
+    rng = np.random.default_rng(7)
+    n = 1 << 20
+    keys = np.sort(rng.integers(0, 40_000, n)).astype(np.int32)
+    vals = (rng.integers(-1000, 1000, (n, 3)) if dtype == np.int32
+            else rng.normal(0, 10, (n, 3))).astype(dtype)
+    start_c = segments.boundary_flags(t(keys))
+    start_g = segments.boundary_flags(t(keys, cuda))
+    assert torch.equal(start_g.cpu(), start_c)
+    spans_g, spans_c = segments.segment_spans(start_g), segments.segment_spans(start_c)
+    assert all(torch.equal(g.cpu(), c) for g, c in zip(spans_g, spans_c))
+    before = segscan.launches
+    sum_g = segments.segment_sum_rows(t(vals, cuda), start_g, spans_g[1])
+    mx_g = segments.segment_max_rows(t(vals, cuda), start_g)
+    mn_g = segments.segment_min_rows(t(vals, cuda), start_g)
+    assert segscan.launches - before == 5
+    sum_c = segments.segment_sum_rows(t(vals), start_c, spans_c[1])
+    assert torch.equal(mx_g.cpu(), segments.segment_max_rows(t(vals), start_c))
+    assert torch.equal(mn_g.cpu(), segments.segment_min_rows(t(vals), start_c))
+    if dtype == np.int32:
+        assert torch.equal(sum_g.cpu(), sum_c)
+    else:
+        absum = segments.segment_sum_rows(t(np.abs(vals)), start_c, spans_c[1])
+        bound = absum * (2.0 ** -23) * 64
+        assert bool(((sum_g.cpu() - sum_c).abs() <= bound + 1e-30).all())

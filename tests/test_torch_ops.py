@@ -221,7 +221,8 @@ def test_state_roundtrip_dtypes():
 
 def test_port_never_imports_jax(tmp_path):
     """In a fresh interpreter, importing every module of the port and
-    chip_smoke loads no jax* module and no module of the JAX package; nor
+    chip_smoke loads no jax* module, no module of the JAX package and none
+    of PIL, pandas or matplotlib (the card's host has none of them); nor
     does a rank that parallel.launch spawns and that runs the sharded
     step."""
     code = (
@@ -231,12 +232,14 @@ def test_port_never_imports_jax(tmp_path):
         "assert len(names) > 20, names\n"
         "new = {'ops.voxel', 'ops.geo', 'io.sevenzip', 'io.gim', 'io.cbm',\n"
         "       'ops.registration', 'models.refine', 'core.streaming', 'core.governor',\n"
-        "       'utils.validate', 'parallel.sharded', 'parallel.launch', 'parallel.group'}\n"
+        "       'utils.validate', 'parallel.sharded', 'parallel.launch', 'parallel.group',\n"
+        "       'io.geoid', 'models.elevation_report', 'viz.boxes', 'viz.export',\n"
+        "       'viz.render', 'ops.sample'}\n"
         "assert {pkg.__name__ + '.' + m for m in new} <= set(names), names\n"
         "for name in names + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'pointcloudhookup_tpu'))\n"
+        "             ('jax', 'jaxlib', 'pointcloudhookup_tpu', 'PIL', 'pandas', 'matplotlib'))\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )
@@ -273,6 +276,24 @@ def test_port_never_imports_jax(tmp_path):
                          timeout=180, cwd=root, env=env)
     assert res.returncode == 0, res.stderr
     assert "ranks ok" in res.stdout
+
+
+@pytest.mark.parametrize("package", ["", ".ops", ".models", ".core", ".utils", ".viz", ".io",
+                                     ".parallel"])
+def test_public_names_mirror_jax(package):
+    """Every name that an __init__.py of the JAX package exports imports
+    from the port's __init__.py of the same layout."""
+    import importlib
+
+    ref = importlib.import_module("pointcloudhookup_tpu" + package)
+    mine = importlib.import_module("pointcloudhookup_tpu_torch" + package)
+    names = [n for n, v in vars(ref).items()
+             if not n.startswith("_") and not isinstance(v, type(importlib))]
+    assert names or package == ""
+    missing = [n for n in names if not hasattr(mine, n)]
+    assert not missing, missing
+    if package == "":
+        assert mine.__version__ == ref.__version__
 
 
 def _morton_axes(seed, size):
