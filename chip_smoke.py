@@ -170,30 +170,38 @@ ICP_WIDENED = (2, 10)
 REGISTER_PEAK_BOUND = 768 << 20
 STREAM_TILES, STREAM_TILE_N, STREAM_SHIFT_M = 50, 1 << 20, 4500.0
 
-# name -> (source, TPU kernel it replaces, (module, launch counter))
+# name -> (source, TPU kernel it replaces, its counter in utils/trace.py)
 KERNELS = {
     "compactrows": ("compactrows.cu", "pointcloudhookup_tpu/ops/pallas/compactrows.py:320",
-                    ("compactrows", "launches")),
+                    "kernel.compact_rows_multi"),
     "segscan": ("segscan.cu", "pointcloudhookup_tpu/ops/pallas/segscan.py:104",
-                ("segscan", "launches")),
+                "kernel.segmented_scan"),
     "neighbor": ("neighbor.cu", "pointcloudhookup_tpu/ops/pallas/neighbor.py:133",
-                 ("neighbor", "launches")),
+                 "kernel.neighbor_reduce"),
     "cluster_converge": ("cluster_converge.cu",
                          "pointcloudhookup_tpu/ops/pallas/cluster_converge.py:259",
-                         ("cluster_converge", "launches")),
+                         "kernel.cluster_cells"),
     "obb_accum": ("obb_accum.cu", "pointcloudhookup_tpu/ops/pallas/obb_accum.py:301",
-                  ("obb_accum", "launches")),
+                  "kernel.obb_accumulate_xyz"),
     "obb_accumulate": ("obb_accum.cu", "pointcloudhookup_tpu/ops/pallas/obb_accum.py:168",
-                       ("obb_accum", "launches_morton")),
+                       "kernel.obb_accumulate"),
     "compact_indices": ("compactidx.cu", "pointcloudhookup_tpu/ops/pallas/compactidx.py:122",
-                        ("compactidx", "launches")),
+                        "kernel.compact_indices"),
     "dupwin": ("dupwin.cu", "pointcloudhookup_tpu/ops/pallas/dupwin.py:70",
-               ("dupwin", "launches")),
+               "kernel.first_occurrence_flags"),
     "winsort": ("winsort.cu", "pointcloudhookup_tpu/ops/pallas/winsort.py:169",
-                ("winsort", "launches")),
+                "kernel.window_sort_w"),
     "mergesort": ("mergesort.cu", "pointcloudhookup_tpu/ops/pallas/mergesort.py:284",
-                  ("mergesort", "launches")),
+                  "kernel.merge_sort_2key"),
 }
+
+
+def wrapper_modules():
+    """The modules of ops/kernels that hold the KERNELS' wrappers."""
+    return sorted({importlib.import_module(f"pointcloudhookup_tpu_torch.ops.kernels.{src[:-3]}")
+                   for src, _, _ in KERNELS.values()}, key=lambda m: m.__name__)
+
+
 EXACT_PATH = ("compactrows", "segscan", "neighbor", "cluster_converge", "obb_accum")
 FAST_PATH = ("compactrows", "segscan", "cluster_converge", "obb_accumulate")
 BENCH_PATH = FAST_PATH + ("compact_indices",)
@@ -632,19 +640,21 @@ def modular_phase(dev, pts, centers, reset_counts, read_counts, profile=None,
 def stage_walls(module, names, dev, walls, counter):
     """Time every call of module.<name> for the given names (wall ms, the
     device drained before and after) into walls[name], and the rise of the
-    launch counter counter = (module, attr) in walls[name + "_launches"].
+    kernel counter ``counter`` (utils/trace.py) in walls[name + "_launches"].
     The calls go through."""
+    from pointcloudhookup_tpu_torch.utils import trace
+
     saved = {name: getattr(module, name) for name in names}
 
     def timed_call(name, fn):
         def call(*args, **kwargs):
             torch.cuda.synchronize(dev)
-            before = getattr(*counter)
+            before = trace.counter(counter)
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize(dev)
             walls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-            walls.setdefault(f"{name}_launches", []).append(getattr(*counter) - before)
+            walls.setdefault(f"{name}_launches", []).append(trace.counter(counter) - before)
             return out
         return call
 
@@ -770,7 +780,7 @@ def gim_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, prof
         walls, scans, buf = {}, [], io.StringIO()
         stages = ("compress", "extract", "import_gim", "correct", "save_gim")
         with no_plain_versions(kernel_modules), \
-                stage_walls(pipeline, stages, dev, walls, (segscan, "launches")), \
+                stage_walls(pipeline, stages, dev, walls, KERNELS["segscan"][2]), \
                 recording(segscan, "segmented_scan", scans), contextlib.redirect_stdout(buf):
             reset_counts()
             t0 = time.perf_counter()
@@ -987,7 +997,7 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
     from pointcloudhookup_tpu_torch.models.towers import extract_step, towers_from_stats
     from pointcloudhookup_tpu_torch.ops import registration
     from pointcloudhookup_tpu_torch.ops.frontend_fused import fused_extract_step
-    from pointcloudhookup_tpu_torch.ops.kernels import segscan
+    from pointcloudhookup_tpu_torch.utils import trace
     from pointcloudhookup_tpu_torch.utils.validate import quality_dedup
 
     results, launches, stream_calls = {}, {}, {}
@@ -1032,9 +1042,9 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
 
         with no_plain_versions(kernel_modules), \
                 stage_walls(pipeline, ("extract_from_points", "save_gim"), dev, walls,
-                            (segscan, "launches")), \
+                            KERNELS["segscan"][2]), \
                 stage_walls(refine, ("refine_tower_centers",), dev, walls,
-                            (segscan, "launches")), \
+                            KERNELS["segscan"][2]), \
                 capturing(refine, "refine_tower_centers", refined, before=count_before):
             reset_counts()
             ms_a, out = run_cli(["correct", gim_path, las_path, "--icp", "--save", out_gim,
@@ -1167,11 +1177,19 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
         b_gov = governor.budget(device=dev, n_points=STREAM_TILE_N)
         with no_plain_versions(kernel_modules):
             torch.cuda.synchronize(dev)
+            trace.reset()
+            trace.enable()
             t0 = time.perf_counter()
-            res = streaming.stream_extract(paths, capacity=STREAM_TILE_N, params=p5,
-                                           fast=True, wire="u16", prefetch=1, timings=True,
-                                           device=dev)
+            try:
+                res = streaming.stream_extract(paths, capacity=STREAM_TILE_N, params=p5,
+                                               fast=True, wire="u16", prefetch=1,
+                                               timings=True, device=dev)
+            finally:
+                trace.disable()
             stream_ms = (time.perf_counter() - t0) * 1e3
+            phase_ms = {}
+            for sp in trace.spans():
+                phase_ms.setdefault(sp.name, []).append((sp.t1_ns - sp.t0_ns) / 1e6)
             towers = []
             for st, m in res:
                 towers.extend(towers_from_stats(st, np.asarray(m["origin"])))
@@ -1181,8 +1199,8 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
         worst = nearest_xy(all_centers, [tw.centroid for tw in kept])
         per_tile_towers = sorted({int(st["accepted"].sum()) for st, _ in res})
         readers = sorted({m["reader"] for m in metas})
-        decode_ms = 1e3 * np.mean([m["decode_seconds"] for m in metas])
-        stage_ms = 1e3 * np.mean([m["stage_seconds"] for m in metas])
+        decode_ms = float(np.mean(phase_ms["stream.decode"]))
+        stage_ms = float(np.mean(phase_ms["stream.stage"]))
         step_ms = 1e3 * np.mean([m["step_seconds"] for m in metas])
         prof_d = profile(lambda: streaming.stream_extract(
             paths[:2], capacity=STREAM_TILE_N, params=p5, fast=True, device=dev), top=40)
@@ -1395,10 +1413,10 @@ def sharded_rank(device, runs, params, capture):
     from pointcloudhookup_tpu_torch.parallel import sharded
     from pointcloudhookup_tpu_torch.parallel.sharded import make_sharded_extract, tile_mesh
 
+    from pointcloudhookup_tpu_torch.utils import trace
+
     group = tile_mesh()
-    counters = {name: (importlib.import_module(f"pointcloudhookup_tpu_torch.ops.kernels.{m}"),
-                       attr) for name, (_, _, (m, attr)) in KERNELS.items()}
-    modules = sorted({mod for mod, _ in counters.values()}, key=lambda m: m.__name__)
+    modules = wrapper_modules()
     on_card = device.type == "cuda"
 
     def sync():
@@ -1438,8 +1456,7 @@ def sharded_rank(device, runs, params, capture):
                     else:
                         step(xyz, mask)
                         step(xyz, mask)
-                    for mod, attr in counters.values():
-                        setattr(mod, attr, 0)
+                    before = {n: trace.counter(c) for n, (_, _, c) in KERNELS.items()}
                     calls, halo = [], []
                     with kernel_calls(calls) if capture and group.rank == 0 \
                             else contextlib.nullcontext():
@@ -1447,7 +1464,8 @@ def sharded_rank(device, runs, params, capture):
                         with recording(sharded, "compact_rows_multi", halo):
                             step(xyz, mask)
                         sync()
-                    res["launches"] = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+                    res["launches"] = {n: trace.counter(c) - before[n]
+                                       for n, (_, _, c) in KERNELS.items()}
                     # _halo_exchange's compact_rows_multi(sel, bits, halo_cap)
                     res["halo_rows"] = [min(int(args[0].sum()), args[2]) for args, _ in halo]
                     if calls:
@@ -2061,20 +2079,19 @@ def main() -> int:
         cluster_obb_stats_accum,
     )
 
-    counters = {
-        name: (importlib.import_module(f"pointcloudhookup_tpu_torch.ops.kernels.{mod}"), attr)
-        for name, (_, _, (mod, attr)) in KERNELS.items()
-    }
+    from pointcloudhookup_tpu_torch.utils import trace
 
-    def reset_counts():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+    base = {}
 
     def counts_now():
-        return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        return {name: trace.counter(c) - base.get(name, 0)
+                for name, (_, _, c) in KERNELS.items()}
+
+    def reset_counts():
+        base.update({name: trace.counter(c) for name, (_, _, c) in KERNELS.items()})
 
     def read_counts(path_kernels, what):
-        counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        counts = counts_now()
         print(f"launches in {what}: {counts}")
         missing = [name for name in path_kernels if counts[name] == 0]
         if missing:
@@ -2321,7 +2338,7 @@ def main() -> int:
     launches.update(modular_launches)
 
     # ---- 9. the GIM workflow: run-all, compress GPU == CPU, reproject
-    kernel_modules = sorted({mod for mod, _ in counters.values()}, key=lambda m: m.__name__)
+    kernel_modules = wrapper_modules()
     gim, launches["gim_run_all"], compress_scan = gim_phase(
         dev, pts, centers, reset_counts, read_counts, kernel_modules, profile_iteration)
 

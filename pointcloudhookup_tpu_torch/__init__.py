@@ -13,7 +13,7 @@ Layering (bottom-up):
   models/    tower schema, the extraction pipeline, GIM workflow, reports
   parallel/  the sharded step over torch.distributed
   viz/       display geometry, scene export, the offscreen renderer
-  utils/     logging/progress plumbing, stage tracing, validation
+  utils/     logging/progress plumbing, the tracer (spans, counters), validation
 """
 
 __version__ = "0.1.0"

@@ -382,20 +382,22 @@ def cmd_run_all(args):
     """compress -> extract -> import GIM -> correct -> save; exits 0 only if
     the save succeeded."""
     from pointcloudhookup_tpu_torch.models import pipeline
+    from pointcloudhookup_tpu_torch.utils import trace
 
-    ds = args.las.rsplit(".", 1)[0] + "_ds.las"
-    pipeline.compress(args.las, ds, voxel_size=args.voxel_size, log_callback=print,
-                      device=args.device)
-    towers = pipeline.extract(ds, log_callback=print, eps=args.eps,
-                              min_points=args.min_points, device=args.device)
-    records, folder, _ = pipeline.import_gim(args.gim, args.output_folder)
-    res = pipeline.correct(records, towers, region_n_value=args.region_n_value)
-    print(f"{len(res.pairs)} towers corrected")
-    rows = pipeline.corrected_rows_from_result(res, records)
-    ok = pipeline.save_gim(folder, rows, args.out_gim, original_gim_path=args.gim,
-                           log_callback=print)
-    if args.csv:
-        res.to_csv(args.csv)
+    with trace.span("run_all"):
+        ds = args.las.rsplit(".", 1)[0] + "_ds.las"
+        pipeline.compress(args.las, ds, voxel_size=args.voxel_size, log_callback=print,
+                          device=args.device)
+        towers = pipeline.extract(ds, log_callback=print, eps=args.eps,
+                                  min_points=args.min_points, device=args.device)
+        records, folder, _ = pipeline.import_gim(args.gim, args.output_folder)
+        res = pipeline.correct(records, towers, region_n_value=args.region_n_value)
+        print(f"{len(res.pairs)} towers corrected")
+        rows = pipeline.corrected_rows_from_result(res, records)
+        ok = pipeline.save_gim(folder, rows, args.out_gim, original_gim_path=args.gim,
+                               log_callback=print)
+        if args.csv:
+            res.to_csv(args.csv)
     sys.exit(0 if ok else 1)
 
 

@@ -15,6 +15,7 @@ stream uses the tensors, so their memory is not handed out again early.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import queue
 import threading
 import time
@@ -24,6 +25,8 @@ import numpy as np
 import torch
 
 from pointcloudhookup_tpu_torch.ops.morton import fma_f32
+from pointcloudhookup_tpu_torch.state import to_numpy
+from pointcloudhookup_tpu_torch.utils import trace
 
 
 def _dequantize_u16(q, scale, shift, n):
@@ -94,78 +97,86 @@ class TileStreamer:
         self.capacity = capacity
 
     def _load(self, source) -> tuple[np.ndarray, str]:
-        if self.decode is not None:
-            return np.asarray(self.decode(source), np.float64), "decode"
-        if isinstance(source, np.ndarray):
-            return np.asarray(source, np.float64), "array"
-        from pointcloudhookup_tpu_torch.native import las_read_xyz
+        with trace.span("stream.decode"):
+            if self.decode is not None:
+                return np.asarray(self.decode(source), np.float64), "decode"
+            if isinstance(source, np.ndarray):
+                return np.asarray(source, np.float64), "array"
+            from pointcloudhookup_tpu_torch.native import las_read_xyz
 
-        xyz = las_read_xyz(str(source))
-        if xyz is not None:
-            return xyz, "native"
-        from pointcloudhookup_tpu_torch.io.las import read_las
+            xyz = las_read_xyz(str(source))
+            if xyz is not None:
+                return xyz, "native"
+            from pointcloudhookup_tpu_torch.io.las import read_las
 
-        return read_las(source).xyz(), "python"
+            return read_las(source).xyz(), "python"
 
     def _chunks(self) -> Iterator[tuple[np.ndarray, dict]]:
         for i, src in enumerate(self.sources):
-            t0 = time.perf_counter()
             pts, reader = self._load(src)
             pts = pts.reshape(-1, 3)
-            decode_s = time.perf_counter() - t0
             for start in range(0, max(len(pts), 1), self.capacity):
                 chunk = pts[start: start + self.capacity]
                 yield chunk, dict(tile=i, offset=start, source=src, n=len(chunk),
-                                  reader=reader, decode_seconds=decode_s)
+                                  reader=reader)
 
     def _host(self, shape, dtype):
         """A zeroed staging tensor: pinned for a CUDA device."""
         return torch.zeros(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
 
     def _prepare(self, chunk: np.ndarray, meta: dict, stream):
-        origin = self.origin if self.origin is not None else (
-            chunk.mean(axis=0) if len(chunk) else np.zeros(3)
-        )
-        n = len(chunk)
-        wire = self.wire
-        lo = chunk.min(axis=0) if n else np.zeros(3)
-        hi = chunk.max(axis=0) if n else np.zeros(3)
-        if wire == "u16":
-            scale = np.maximum((hi - lo) / 65535.0, 1e-9)
-            if self.max_pitch is not None and float(scale.max()) > self.max_pitch:
-                wire = "f32"  # lattice too coarse for this chunk: go exact
-        t0 = time.perf_counter()
-        if wire == "u16":
-            # the u16 bits travel as int16 (torch has few uint16 kernels)
-            q = self._host((self.capacity, 3), torch.int16)
-            if n:
-                tmp = chunk - lo
-                tmp /= scale
-                np.rint(tmp, out=tmp)
-                np.clip(tmp, 0, 65535, out=tmp)
-                q.numpy().view(np.uint16)[:n] = tmp
-            consts = self._host((2, 3), torch.float32)
-            consts.numpy()[0] = scale
-            consts.numpy()[1] = lo - origin
-            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-                qd = q.to(self.device, non_blocking=True).to(torch.int32) & 0xFFFF
-                cd = consts.to(self.device, non_blocking=True)
-                xa, ma = _dequantize_u16(qd, cd[0], cd[1], n)
-        else:
-            xyz = self._host((self.capacity, 3), torch.float32)
-            if n:
-                np.subtract(chunk, origin, out=xyz.numpy()[:n], casting="same_kind")
-            mask = self._host((self.capacity,), torch.bool)
-            mask[:n] = True
-            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-                xa = xyz.to(self.device, non_blocking=True)
-                ma = mask.to(self.device, non_blocking=True)
-        event = None
-        if stream is not None:
-            event = torch.cuda.Event()
-            event.record(stream)
-        meta = dict(meta, origin=origin, wire=wire, span=hi - lo,
-                    stage_seconds=time.perf_counter() - t0, uploaded=event)
+        with trace.span("stream.stage"):
+            with trace.span("stream.stage.stats"):
+                origin = self.origin if self.origin is not None else (
+                    chunk.mean(axis=0) if len(chunk) else np.zeros(3)
+                )
+                n = len(chunk)
+                wire = self.wire
+                lo = chunk.min(axis=0) if n else np.zeros(3)
+                hi = chunk.max(axis=0) if n else np.zeros(3)
+                if wire == "u16":
+                    scale = np.maximum((hi - lo) / 65535.0, 1e-9)
+                    if self.max_pitch is not None and float(scale.max()) > self.max_pitch:
+                        wire = "f32"  # lattice too coarse for this chunk: go exact
+            with trace.span("stream.stage.alloc"):
+                if wire == "u16":
+                    # the u16 bits travel as int16 (torch has few uint16 kernels)
+                    bufs = (self._host((self.capacity, 3), torch.int16),
+                            self._host((2, 3), torch.float32))
+                else:
+                    bufs = (self._host((self.capacity, 3), torch.float32),
+                            self._host((self.capacity,), torch.bool))
+            with trace.span("stream.stage.fill"):
+                copying = (torch.cuda.stream(stream) if stream is not None
+                           else contextlib.nullcontext())
+                if wire == "u16":
+                    q, consts = bufs
+                    if n:
+                        tmp = chunk - lo
+                        tmp /= scale
+                        np.rint(tmp, out=tmp)
+                        np.clip(tmp, 0, 65535, out=tmp)
+                        q.numpy().view(np.uint16)[:n] = tmp
+                    consts.numpy()[0] = scale
+                    consts.numpy()[1] = lo - origin
+                    with copying:
+                        qd = q.to(self.device, non_blocking=True).to(torch.int32) & 0xFFFF
+                        cd = consts.to(self.device, non_blocking=True)
+                        xa, ma = _dequantize_u16(qd, cd[0], cd[1], n)
+                else:
+                    xyz, mask = bufs
+                    if n:
+                        np.subtract(chunk, origin, out=xyz.numpy()[:n], casting="same_kind")
+                    mask[:n] = True
+                    with copying:
+                        xa = xyz.to(self.device, non_blocking=True)
+                        ma = mask.to(self.device, non_blocking=True)
+                trace.count("upload_bytes", sum(b.nbytes for b in bufs))
+                event = None
+                if stream is not None:
+                    event = torch.cuda.Event()
+                    event.record(stream)
+            meta = dict(meta, origin=origin, wire=wire, span=hi - lo, uploaded=event)
         return xa, ma, meta, event
 
     def __iter__(self):
@@ -188,10 +199,13 @@ class TileStreamer:
             finally:
                 q.put(done)
 
-        t = threading.Thread(target=producer, daemon=True)
+        # the producer's spans carry the consumer's request and open span
+        t = threading.Thread(target=contextvars.copy_context().run, args=(producer,),
+                             daemon=True)
         t.start()
         while True:
-            item = q.get()
+            with trace.span("stream.wait"):
+                item = q.get()
             if item is done:
                 break
             xa, ma, meta, event = item
@@ -247,17 +261,19 @@ def stream_extract(
 
     point_sized = ("labels", "ground_keep", "ds_xyz")
     results = []
-    for xyz, mask, meta in TileStreamer(sources, capacity, origin=origin, device=device,
-                                        wire=wire, prefetch=prefetch):
-        t0 = time.perf_counter() if timings else 0.0
-        stats = step(xyz, mask)
-        out = {}
-        for k, v in stats.items():
-            if k in point_sized and not fetch_labels:
-                out[k] = v  # stays on the device
-            else:
-                out[k] = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-        if timings:
-            meta = dict(meta, step_seconds=time.perf_counter() - t0)
-        results.append((out, meta))
+    with trace.span("stream"):
+        for xyz, mask, meta in TileStreamer(sources, capacity, origin=origin, device=device,
+                                            wire=wire, prefetch=prefetch):
+            t0 = time.perf_counter() if timings else 0.0
+            with trace.span("stream.step"):
+                stats = step(xyz, mask)
+                out = {}
+                for k, v in stats.items():
+                    if k in point_sized and not fetch_labels:
+                        out[k] = v  # stays on the device
+                    else:
+                        out[k] = to_numpy(v)
+            if timings:
+                meta = dict(meta, step_seconds=time.perf_counter() - t0)
+            results.append((out, meta))
     return results

@@ -16,6 +16,8 @@ from typing import Optional
 
 import numpy as np
 
+from pointcloudhookup_tpu_torch.utils import trace
+
 _SIGNATURE = b"LASF"
 
 # point-record numpy dtypes (little-endian) per format id
@@ -119,60 +121,61 @@ def peek_point_count(path) -> int:
 
 
 def read_las(path) -> LasData:
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:4] != _SIGNATURE:
-        raise ValueError(f"not a LAS file (bad signature): {path!r}")
-    if len(data) < 227:
-        # smallest legal header (LAS 1.2); truncated files would
-        # otherwise leak struct.error from the field unpacks below
-        raise ValueError(
-            f"truncated LAS header ({len(data)} bytes): {path!r}"
-        )
-    ver = (data[24], data[25])
-    if ver >= (1, 4) and len(data) < 375:
-        raise ValueError(
-            f"truncated LAS 1.4 header ({len(data)} bytes): {path!r}"
-        )
-    header_size, point_offset, num_vlrs = struct.unpack_from("<HII", data, 94)
-    fmt_raw = data[104]
-    if fmt_raw & 0x80:
-        # LAZ: chunked-arithmetic LASzip payload (native codec)
-        from pointcloudhookup_tpu_torch.io.laz import read_laz_bytes
+    with trace.span("las.read"):
+        with open(path, "rb") as f:
+            data = f.read()
+        if data[:4] != _SIGNATURE:
+            raise ValueError(f"not a LAS file (bad signature): {path!r}")
+        if len(data) < 227:
+            # smallest legal header (LAS 1.2); truncated files would
+            # otherwise leak struct.error from the field unpacks below
+            raise ValueError(
+                f"truncated LAS header ({len(data)} bytes): {path!r}"
+            )
+        ver = (data[24], data[25])
+        if ver >= (1, 4) and len(data) < 375:
+            raise ValueError(
+                f"truncated LAS 1.4 header ({len(data)} bytes): {path!r}"
+            )
+        header_size, point_offset, num_vlrs = struct.unpack_from("<HII", data, 94)
+        fmt_raw = data[104]
+        if fmt_raw & 0x80:
+            # LAZ: chunked-arithmetic LASzip payload (native codec)
+            from pointcloudhookup_tpu_torch.io.laz import read_laz_bytes
 
-        return read_laz_bytes(data, str(path))
-    fmt = fmt_raw & 0x3F
-    if fmt not in POINT_DTYPES:
-        raise ValueError(f"unsupported point format {fmt}")
-    record_len = struct.unpack_from("<H", data, 105)[0]
-    legacy_count = struct.unpack_from("<I", data, 107)[0]
-    scales = np.frombuffer(data, "<f8", 3, 131).copy()
-    offsets = np.frombuffer(data, "<f8", 3, 155).copy()
-    count = legacy_count
-    if ver >= (1, 4):
-        count64 = struct.unpack_from("<Q", data, 247)[0]
-        if count64:
-            count = count64
-    dtype = POINT_DTYPES[fmt]
-    if record_len < dtype.itemsize:
-        raise ValueError(
-            f"record length {record_len} smaller than format {fmt} size {dtype.itemsize}"
+            return read_laz_bytes(data, str(path))
+        fmt = fmt_raw & 0x3F
+        if fmt not in POINT_DTYPES:
+            raise ValueError(f"unsupported point format {fmt}")
+        record_len = struct.unpack_from("<H", data, 105)[0]
+        legacy_count = struct.unpack_from("<I", data, 107)[0]
+        scales = np.frombuffer(data, "<f8", 3, 131).copy()
+        offsets = np.frombuffer(data, "<f8", 3, 155).copy()
+        count = legacy_count
+        if ver >= (1, 4):
+            count64 = struct.unpack_from("<Q", data, 247)[0]
+            if count64:
+                count = count64
+        dtype = POINT_DTYPES[fmt]
+        if record_len < dtype.itemsize:
+            raise ValueError(
+                f"record length {record_len} smaller than format {fmt} size {dtype.itemsize}"
+            )
+        raw = np.frombuffer(data, np.uint8, count * record_len, point_offset).reshape(
+            count, record_len
         )
-    raw = np.frombuffer(data, np.uint8, count * record_len, point_offset).reshape(
-        count, record_len
-    )
-    # records may carry extra bytes; view only the leading known fields
-    points = np.ascontiguousarray(raw[:, : dtype.itemsize]).view(dtype).reshape(count)
-    vlr_bytes = data[header_size:point_offset]
-    return LasData(
-        points=points.copy(),
-        scales=scales,
-        offsets=offsets,
-        point_format=fmt,
-        version=ver,
-        vlr_bytes=vlr_bytes,
-        num_vlrs=num_vlrs,
-    )
+        # records may carry extra bytes; view only the leading known fields
+        points = np.ascontiguousarray(raw[:, : dtype.itemsize]).view(dtype).reshape(count)
+        vlr_bytes = data[header_size:point_offset]
+        return LasData(
+            points=points.copy(),
+            scales=scales,
+            offsets=offsets,
+            point_format=fmt,
+            version=ver,
+            vlr_bytes=vlr_bytes,
+            num_vlrs=num_vlrs,
+        )
 
 
 def make_las(

@@ -55,6 +55,7 @@ from pointcloudhookup_tpu_torch.ops.geo import (
 )
 from pointcloudhookup_tpu_torch.ops.voxel import voxel_downsample, voxel_downsample_chunked
 from pointcloudhookup_tpu_torch.state import to_numpy
+from pointcloudhookup_tpu_torch.utils import trace
 from pointcloudhookup_tpu_torch.utils.logging import Reporter
 
 
@@ -73,38 +74,48 @@ def compress(
     scales, offsets, point format and version.  per_chunk=True dedups
     voxels within each chunk_size block only, as the reference does.
     Returns the output point count."""
-    rep = Reporter(progress_callback, log_callback)
-    las = read_las(input_path)
-    pts = las.xyz()
-    rep.log(f"read {len(pts)} points from {input_path}")
-    rep.progress(10)
+    with trace.span("compress"):
+        rep = Reporter(progress_callback, log_callback)
+        las = read_las(input_path)
+        with trace.span("las.xyz"):
+            pts = las.xyz()
+        rep.log(f"read {len(pts)} points from {input_path}")
+        rep.progress(10)
 
-    origin = pts.mean(axis=0) if len(pts) else np.zeros(3)
-    centered = (pts - origin).astype(np.float32)
-    cap = round_up(max(len(pts), 1), chunk_size if per_chunk else 1024)
-    xyz = np.zeros((cap, 3), np.float32)
-    xyz[: len(pts)] = centered
-    mask = np.zeros(cap, bool)
-    mask[: len(pts)] = True
+        with trace.span("compress.prepare"):
+            origin = pts.mean(axis=0) if len(pts) else np.zeros(3)
+            centered = (pts - origin).astype(np.float32)
+            cap = round_up(max(len(pts), 1), chunk_size if per_chunk else 1024)
+            xyz = np.zeros((cap, 3), np.float32)
+            xyz[: len(pts)] = centered
+            mask = np.zeros(cap, bool)
+            mask[: len(pts)] = True
+            xyz_t, mask_t = _upload(xyz, device), _upload(mask, device)
+        with trace.span("compress.voxel"):
+            if per_chunk:
+                out_xyz, out_mask = voxel_downsample_chunked(
+                    xyz_t, mask_t, voxel_size, chunk_size=chunk_size)
+            else:
+                out_xyz, out_mask = voxel_downsample(xyz_t, mask_t, voxel_size)
+        rep.progress(80)
+        with trace.span("compress.fetch"):
+            out = to_numpy(out_xyz)[to_numpy(out_mask)].astype(np.float64) + origin
 
-    xyz_t = torch.from_numpy(xyz).to(device)
-    mask_t = torch.from_numpy(mask).to(device)
-    if per_chunk:
-        out_xyz, out_mask = voxel_downsample_chunked(
-            xyz_t, mask_t, voxel_size, chunk_size=chunk_size)
-    else:
-        out_xyz, out_mask = voxel_downsample(xyz_t, mask_t, voxel_size)
-    rep.progress(80)
-    out = out_xyz.cpu().numpy()[out_mask.cpu().numpy()].astype(np.float64) + origin
-
-    reduced = make_las(
-        out, scales=las.scales, offsets=las.offsets, point_format=las.point_format,
-        version=las.version,
-    )
-    write_las(reduced, output_path)
-    rep.progress(100)
-    rep.log(f"downsampled to {len(out)} points -> {output_path}")
+        with trace.span("compress.write"):
+            reduced = make_las(
+                out, scales=las.scales, offsets=las.offsets, point_format=las.point_format,
+                version=las.version,
+            )
+            write_las(reduced, output_path)
+        rep.progress(100)
+        rep.log(f"downsampled to {len(out)} points -> {output_path}")
     return len(out)
+
+
+def _upload(array: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``, its bytes counted as upload_bytes."""
+    trace.count("upload_bytes", array.nbytes)
+    return torch.from_numpy(array).to(device)
 
 
 # ------------------------------------------------------------ extract
@@ -150,7 +161,8 @@ def extract(
     rep.log(f"reading {input_las_path}")
     rep.progress(5)
     las = read_las(input_las_path)
-    pts = las.xyz()
+    with trace.span("las.xyz"):
+        pts = las.xyz()
     rep.log(f"read {len(pts)} points")
 
     towers, stats, origin = extract_from_points(pts, params, device=device)
@@ -231,15 +243,18 @@ def _extract_stats_exact_fast(
     )
     floor = params.cluster.min_cell_points
     core_cap = _core_cap0
-    xyz_t = torch.from_numpy(xyz).to(device)
-    mask_t = torch.from_numpy(mask).to(device)
+    with trace.span("extract.upload"):
+        xyz_t, mask_t = _upload(xyz, device), _upload(mask, device)
     while True:
-        stats = exact_extract_graph(
-            xyz_t, mask_t, params, cell_bits=cell_bits, compact_cap=ccap,
-            max_cells=params.cluster.max_cells, min_cell_points=floor,
-            core_cap=core_cap,
-        )
-        stats = to_numpy(stats)
+        trace.count("extract.ladder_step")
+        with trace.span("extract.graph"):
+            stats = exact_extract_graph(
+                xyz_t, mask_t, params, cell_bits=cell_bits, compact_cap=ccap,
+                max_cells=params.cluster.max_cells, min_cell_points=floor,
+                core_cap=core_cap,
+            )
+        with trace.span("extract.fetch"):
+            stats = to_numpy(stats)
         if float(stats["core_overflow"]) > 0.0:
             if core_cap < 32768:
                 need = core_cap + int(stats["core_overflow"])
@@ -254,25 +269,26 @@ def _extract_stats_exact_fast(
             continue
         break
 
-    stats.pop("core_overflow")
-    labels = np.full(cap, -1, np.int32)
-    labs = stats.pop("labels_sorted")
-    rows = stats.pop("rows_sorted")
-    sel = labs >= 0
-    labels[rows[sel]] = labs[sel]
-    off = (
-        params.ground.retry_offset
-        if bool(stats.pop("used_retry"))
-        else params.ground.offset
-    )
-    base = np.float32(stats["base_height"])
-    keep = mask & (xyz[:, 2].astype(np.float32) > base + np.float32(off))
-    stats["ladder"] = dict(
-        floor=floor, core_cap=core_cap, compact_cap=ccap,
-        compact_count=int(stats.pop("compact_count")),
-    )
-    stats["labels"] = labels
-    stats["ground_keep"] = keep
+    with trace.span("extract.finish"):
+        stats.pop("core_overflow")
+        labels = np.full(cap, -1, np.int32)
+        labs = stats.pop("labels_sorted")
+        rows = stats.pop("rows_sorted")
+        sel = labs >= 0
+        labels[rows[sel]] = labs[sel]
+        off = (
+            params.ground.retry_offset
+            if bool(stats.pop("used_retry"))
+            else params.ground.offset
+        )
+        base = np.float32(stats["base_height"])
+        keep = mask & (xyz[:, 2].astype(np.float32) > base + np.float32(off))
+        stats["ladder"] = dict(
+            floor=floor, core_cap=core_cap, compact_cap=ccap,
+            compact_count=int(stats.pop("compact_count")),
+        )
+        stats["labels"] = labels
+        stats["ground_keep"] = keep
     return stats
 
 
@@ -292,28 +308,32 @@ def extract_from_points(
     density floor (up to 16) while dense grid cells overflow the table, as
     the JAX package does (stats gain 'modular': the settled floor and its
     cells_overflow)."""
-    points = np.asarray(points, np.float64).reshape(-1, 3)
-    origin = points.mean(axis=0) if len(points) else np.zeros(3)
-    if capacity is not None:
-        cap = capacity
-    elif params.cluster.per_chunk:
-        cap = round_up(max(len(points), 1), params.cluster.chunk_size)
-    elif len(points) > params.cluster.auto_grid_threshold:
-        cap = round_up(max(len(points), 1), 32768)
-    else:
-        cap = round_up(max(len(points), 1), 1024)
-    xyz = np.zeros((cap, 3), np.float32)
-    xyz[: len(points)] = (points - origin).astype(np.float32)
-    mask = np.zeros(cap, bool)
-    mask[: len(points)] = True
+    with trace.span("extract"):
+        with trace.span("extract.prepare"):
+            points = np.asarray(points, np.float64).reshape(-1, 3)
+            origin = points.mean(axis=0) if len(points) else np.zeros(3)
+            if capacity is not None:
+                cap = capacity
+            elif params.cluster.per_chunk:
+                cap = round_up(max(len(points), 1), params.cluster.chunk_size)
+            elif len(points) > params.cluster.auto_grid_threshold:
+                cap = round_up(max(len(points), 1), 32768)
+            else:
+                cap = round_up(max(len(points), 1), 1024)
+            xyz = np.zeros((cap, 3), np.float32)
+            xyz[: len(points)] = (points - origin).astype(np.float32)
+            mask = np.zeros(cap, bool)
+            mask[: len(points)] = True
+            plan = _exact_fast_plan(points, params, cap)
 
-    plan = _exact_fast_plan(points, params, cap)
-    if plan is not None:
-        stats = _extract_stats_exact_fast(xyz, mask, params, plan, device=device)
-        if stats is not None:
-            return towers_from_stats(stats, origin), stats, origin
-    stats = _extract_stats_modular(xyz, mask, params, device=device)
-    return towers_from_stats(stats, origin), stats, origin
+        stats = None
+        if plan is not None:
+            stats = _extract_stats_exact_fast(xyz, mask, params, plan, device=device)
+        if stats is None:
+            stats = _extract_stats_modular(xyz, mask, params, device=device)
+        with trace.span("extract.finish"):
+            towers = towers_from_stats(stats, origin)
+    return towers, stats, origin
 
 
 def _extract_stats_modular(xyz: np.ndarray, mask: np.ndarray, params: ExtractParams,
@@ -323,16 +343,22 @@ def _extract_stats_modular(xyz: np.ndarray, mask: np.ndarray, params: ExtractPar
     scale), so the step re-runs with the floor doubled (at least 2, at
     most 16) while cells_overflow > 0.  Returns the numpy stats with
     'modular' = dict(floor, cells_overflow)."""
-    xyz_t = torch.from_numpy(xyz).to(device)
-    mask_t = torch.from_numpy(mask).to(device)
+    with trace.span("extract.upload"):
+        xyz_t, mask_t = _upload(xyz, device), _upload(mask, device)
     floor = params.cluster.min_cell_points
-    stats = to_numpy(extract_step(xyz_t, mask_t, params))
-    while float(stats["cells_overflow"]) > 0.0 and floor < 16:
+    step_params = params
+    while True:
+        trace.count("extract.ladder_step")
+        with trace.span("extract.graph"):
+            stats = extract_step(xyz_t, mask_t, step_params)
+        with trace.span("extract.fetch"):
+            stats = to_numpy(stats)
+        if not (float(stats["cells_overflow"]) > 0.0 and floor < 16):
+            break
         floor = min(floor * 2 if floor > 1 else 2, 16)
-        retry = dataclasses.replace(
+        step_params = dataclasses.replace(
             params, cluster=dataclasses.replace(params.cluster, min_cell_points=floor)
         )
-        stats = to_numpy(extract_step(xyz_t, mask_t, retry))
     stats["modular"] = dict(floor=floor, cells_overflow=float(stats["cells_overflow"]))
     return stats
 
@@ -424,11 +450,12 @@ def reproject_las(
 def import_gim(gim_path: str, output_folder: str = "output", log_callback=None):
     """Unpack a .gim and parse its tower records.
     Returns (tower_records, extracted_folder, header)."""
-    rep = Reporter(None, log_callback)
-    folder, header = extract_gim(gim_path, output_folder)
-    rep.log(f"extracted GIM to {folder}")
-    records = load_towers_from_gim_folder(folder, rep.log)
-    rep.log(f"parsed {len(records)} towers from GIM")
+    with trace.span("gim.import"):
+        rep = Reporter(None, log_callback)
+        folder, header = extract_gim(gim_path, output_folder)
+        rep.log(f"extracted GIM to {folder}")
+        records = load_towers_from_gim_folder(folder, rep.log)
+        rep.log(f"parsed {len(records)} towers from GIM")
     return records, folder, header
 
 
@@ -683,38 +710,40 @@ def correct(
     pylon frame before the write-back (models/refine.py), its height from
     the GIM tower's 杆塔高 where the record has one.  Refined pairs carry
     their ICP rmse in ConvertedTower.icp_rmse."""
-    converted = convert_pointcloud_towers(pc_towers, region_n_value, geoid)
-    pairs = match_towers(gim_list, converted, distance_threshold, height_threshold)
-    if icp and pairs:
-        if pc_clouds is None:
-            raise ValueError("correct(icp=True) requires pc_clouds")
-        from pointcloudhookup_tpu_torch.models.refine import refine_tower_centers
+    with trace.span("gim.correct"):
+        converted = convert_pointcloud_towers(pc_towers, region_n_value, geoid)
+        pairs = match_towers(gim_list, converted, distance_threshold, height_threshold)
+        if icp and pairs:
+            if pc_clouds is None:
+                raise ValueError("correct(icp=True) requires pc_clouds")
+            from pointcloudhookup_tpu_torch.models.refine import refine_tower_centers
 
-        tmpl = {}
-        for gi, pi in pairs:
-            try:
-                th = float(_tower_prop(gim_list[gi], "杆塔高", ""))
-            except (TypeError, ValueError):
-                th = None
-            if th:
-                tmpl[pi] = (th, None)
-        refined = refine_tower_centers(
-            pc_towers, pc_clouds, [pi for _, pi in pairs],
-            iters=icp_iters, max_corr_dist=icp_max_corr_dist,
-            template_params=tmpl or None, device=device,
-        )
-        for pi, r in refined.items():
-            e, n, h_ellip = (float(v) for v in r["center"])
-            lon, lat = (float(v) for v in tm_inverse(e, n))
-            h_ortho = float(ellipsoid_to_orthometric(lat, lon, h_ellip, geoid, region_n_value))
-            c = converted[pi]
-            c.converted_center = [lon, lat, h_ortho]
-            c.original_center = [e, n, h_ellip]
-            c.ellipsoid_height = h_ellip
-            c.orthometric_height = h_ortho
-            c.n_value = h_ellip - h_ortho
-            c.icp_rmse = float(r["rmse"])
-    return _build_result(gim_list, converted, pairs, corrected=True)
+            tmpl = {}
+            for gi, pi in pairs:
+                try:
+                    th = float(_tower_prop(gim_list[gi], "杆塔高", ""))
+                except (TypeError, ValueError):
+                    th = None
+                if th:
+                    tmpl[pi] = (th, None)
+            refined = refine_tower_centers(
+                pc_towers, pc_clouds, [pi for _, pi in pairs],
+                iters=icp_iters, max_corr_dist=icp_max_corr_dist,
+                template_params=tmpl or None, device=device,
+            )
+            for pi, r in refined.items():
+                e, n, h_ellip = (float(v) for v in r["center"])
+                lon, lat = (float(v) for v in tm_inverse(e, n))
+                h_ortho = float(ellipsoid_to_orthometric(lat, lon, h_ellip, geoid,
+                                                         region_n_value))
+                c = converted[pi]
+                c.converted_center = [lon, lat, h_ortho]
+                c.original_center = [e, n, h_ellip]
+                c.ellipsoid_height = h_ellip
+                c.orthometric_height = h_ortho
+                c.n_value = h_ellip - h_ortho
+                c.icp_rmse = float(r["rmse"])
+        return _build_result(gim_list, converted, pairs, corrected=True)
 
 
 # ------------------------------------------------------------ save
@@ -749,16 +778,17 @@ def save_gim(
     behind the original's 776-byte header.  Returns False (and logs why)
     when the files cannot be written."""
     rep = Reporter(None, log_callback)
-    try:
-        updated = apply_corrections(extracted_gim_folder, list(corrected_data), rep.log)
-        rep.log(f"updated {updated} CBM files")
-        header = None
-        if original_gim_path and os.path.exists(original_gim_path):
-            with open(original_gim_path, "rb") as f:
-                header = f.read(776)
-        write_gim(extracted_gim_folder, output_gim_path, header=header, level=level)
-        rep.log(f"GIM written: {output_gim_path}")
-        return True
-    except (OSError, ValueError) as e:
-        rep.log(f"save failed: {e}")
-        return False
+    with trace.span("gim.save"):
+        try:
+            updated = apply_corrections(extracted_gim_folder, list(corrected_data), rep.log)
+            rep.log(f"updated {updated} CBM files")
+            header = None
+            if original_gim_path and os.path.exists(original_gim_path):
+                with open(original_gim_path, "rb") as f:
+                    header = f.read(776)
+            write_gim(extracted_gim_folder, output_gim_path, header=header, level=level)
+            rep.log(f"GIM written: {output_gim_path}")
+            return True
+        except (OSError, ValueError) as e:
+            rep.log(f"save failed: {e}")
+            return False

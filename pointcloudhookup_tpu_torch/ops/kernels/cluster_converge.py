@@ -14,9 +14,8 @@ from __future__ import annotations
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
+from pointcloudhookup_tpu_torch.utils import trace
 from pointcloudhookup_tpu_torch.ops.kernels.neighbor import eps_ball_reduce_plain
-
-launches = 0  # cluster_cells calls that ran the kernels (read and reset by chip_smoke.py)
 
 
 def cluster_cells(centers, ccount, alive, labels0, eps2, min_points, *,
@@ -41,7 +40,6 @@ def cluster_cells(centers, ccount, alive, labels0, eps2, min_points, *,
             f"cluster_cells: max_iter={max_iter} < M={m}; the CUDA kernels "
             "compute the fixpoint (no rounds to truncate)"
         )
-    global launches
     build.require_cuda("cluster_cells", centers, ccount, alive, labels0)
     if centers.dtype != torch.float32 or centers.shape != (m, 3):
         raise ValueError("centers must be float32[M, 3]")
@@ -65,7 +63,7 @@ def cluster_cells(centers, ccount, alive, labels0, eps2, min_points, *,
         ),
         "cluster_cells",
     )
-    launches += 1
+    trace.count("kernel.cluster_cells")
     return labels, pop
 
 

@@ -13,8 +13,7 @@ from __future__ import annotations
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
-
-launches = 0  # kernel launches in this process (read and reset by chip_smoke.py)
+from pointcloudhookup_tpu_torch.utils import trace
 
 
 def compact_indices(flag, m: int):
@@ -22,7 +21,6 @@ def compact_indices(flag, m: int):
     flag bool[N]; slots past the number of True entries hold N - 1."""
     if flag.device.type == "cpu":
         return compact_indices_plain(flag, m)
-    global launches
     build.require_cuda("compact_indices", flag)
     n = flag.shape[0]
     if flag.dtype != torch.bool or flag.dim() != 1 or not 0 < n < 2**31:
@@ -38,7 +36,7 @@ def compact_indices(flag, m: int):
     )
     build.check(rc, "compact_indices")
     if m > 0:
-        launches += 1
+        trace.count("kernel.compact_indices")
     return out
 
 

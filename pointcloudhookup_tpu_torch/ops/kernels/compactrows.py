@@ -17,9 +17,8 @@ import functools
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
+from pointcloudhookup_tpu_torch.utils import trace
 from pointcloudhookup_tpu_torch.ops.morton import SENTINEL_HI
-
-launches = 0  # calls that launched the kernels (read and reset by chip_smoke.py)
 
 
 @functools.cache
@@ -41,7 +40,6 @@ def compact_rows_multi(keep, channels, capacity: int, fills=None):
     tensor."""
     if keep.device.type == "cpu":
         return compact_rows_multi_plain(keep, channels, capacity, fills)
-    global launches
     n = keep.shape[0]
     nchan = len(channels)
     build.require_cuda("compact_rows_multi", keep, *channels)
@@ -64,7 +62,7 @@ def compact_rows_multi(keep, channels, capacity: int, fills=None):
         buf.data_ptr() + 4 * words, capacity, buf.data_ptr(), build.stream(keep.device),
     )
     build.check(rc, "compact_rows_multi")
-    launches += 1
+    trace.count("kernel.compact_rows_multi")
     return buf[words:].view(nchan, capacity).unbind(0), buf[0]
 
 

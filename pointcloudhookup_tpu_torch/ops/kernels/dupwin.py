@@ -14,8 +14,7 @@ from __future__ import annotations
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
-
-launches = 0  # kernel launches in this process (read and reset by chip_smoke.py)
+from pointcloudhookup_tpu_torch.utils import trace
 
 
 def first_occurrence_flags(k1, w, depth: int):
@@ -27,7 +26,6 @@ def first_occurrence_flags(k1, w, depth: int):
         raise ValueError(f"depth must be >= 1, got {depth}")
     if k1.device.type == "cpu":
         return first_occurrence_flags_plain(k1, w, depth)
-    global launches
     build.require_cuda("first_occurrence_flags", k1, w)
     n = k1.shape[0]
     if k1.dtype != torch.int64 or k1.dim() != 1:
@@ -42,7 +40,8 @@ def first_occurrence_flags(k1, w, depth: int):
         k1.data_ptr(), w.data_ptr(), n, depth, out.data_ptr(), build.stream(k1.device)
     )
     build.check(rc, "first_occurrence_flags")
-    launches += n > 0
+    if n > 0:
+        trace.count("kernel.first_occurrence_flags")
     return out
 
 

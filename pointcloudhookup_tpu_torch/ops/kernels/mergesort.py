@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
+from pointcloudhookup_tpu_torch.utils import trace
 
-launches = 0  # merge_sort_2key calls that ran the kernels (read and reset by chip_smoke.py)
 
 MAX_BLOCK = 8192  # the block sort's tile: one CUDA block sorts 8,192 keys
 
@@ -43,7 +43,6 @@ def merge_sort_2key(hi, lo, *, block: int = 8192):
     """(hi, lo) int32[N] sorted lexicographically; N must satisfy
     merge_sort_eligible(N, block), and block is a power of two in
     [32, 8192]."""
-    global launches
     n = hi.shape[0]
     if not merge_sort_eligible(n, block):
         raise ValueError(f"merge_sort_2key needs a power-of-two N >= 2 * block "
@@ -66,7 +65,7 @@ def merge_sort_2key(hi, lo, *, block: int = 8192):
                 "merge_sort_2key")
     build.check(lib.pch_merge_rounds(kp, kp + 8 * n, op, op + 4 * n, n, block, stream),
                 "merge_sort_2key")
-    launches += 1  # one call: the block sort and log2(n / block) rounds
+    trace.count("kernel.merge_sort_2key")
     return out[0], out[1]
 
 

@@ -14,8 +14,8 @@ from __future__ import annotations
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
+from pointcloudhookup_tpu_torch.utils import trace
 
-launches = 0  # kernel launches in this process (read and reset by chip_smoke.py)
 
 _MODES = {"both": 0, "pop": 1, "lmin": 2}
 _CHUNK_ROWS = 512  # rows per chunk of the plain version
@@ -42,7 +42,6 @@ def neighbor_reduce(xyz, labels, weights, allowed, eps2, *, sentinel=None,
         return neighbor_reduce_plain(
             xyz, labels, weights, allowed, eps2, sentinel=sentinel, mode=mode
         )
-    global launches
     build.require_cuda("neighbor_reduce", xyz, labels, weights, allowed)
     if xyz.dtype != torch.float32 or xyz.shape != (m, 3):
         raise ValueError("xyz must be float32[M, 3]")
@@ -64,7 +63,7 @@ def neighbor_reduce(xyz, labels, weights, allowed, eps2, *, sentinel=None,
         scratch.data_ptr(), pop.data_ptr(), lmin.data_ptr(), build.stream(dev),
     )
     build.check(rc, "neighbor_reduce")
-    launches += 1
+    trace.count("kernel.neighbor_reduce")
     return pop, lmin
 
 

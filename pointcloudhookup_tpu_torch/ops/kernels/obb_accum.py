@@ -12,8 +12,6 @@ as ``ix * vs + off`` with ``off = mn + vs/2`` rounded once, as the TPU
 kernel does (the JAX oracle adds mn and vs/2 separately, which can differ
 by one ulp), and the product and sum rounded once, as XLA:CPU compiles the
 kernel (a fused multiply-add: ``fma_f32`` here, ``__fmaf_rn`` in CUDA).
-``launches`` counts the raw-coordinate kernel, ``launches_morton`` the
-Morton one.
 """
 
 from __future__ import annotations
@@ -23,10 +21,9 @@ import math
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
+from pointcloudhookup_tpu_torch.utils import trace
 from pointcloudhookup_tpu_torch.ops.morton import fma_f32, morton_decode
 
-launches = 0  # obb_accumulate_xyz launches (read and reset by chip_smoke.py)
-launches_morton = 0  # obb_accumulate launches
 
 _BIG = 3.0e38
 _CHUNK_ROWS = 1 << 16
@@ -64,7 +61,6 @@ def obb_accumulate_xyz(x, y, z, labels, *, max_clusters: int = 128,
         return obb_accumulate_xyz_plain(
             x, y, z, labels, max_clusters=max_clusters, num_angles=num_angles
         )
-    global launches
     build.require_cuda("obb_accumulate_xyz", x, y, z, labels)
     n = x.shape[0]
     for t in (x, y, z):
@@ -82,7 +78,7 @@ def obb_accumulate_xyz(x, y, z, labels, *, max_clusters: int = 128,
         build.stream(x.device),
     )
     build.check(rc, "obb_accumulate_xyz")
-    launches += 1
+    trace.count("kernel.obb_accumulate_xyz")
     return _unpack(out, k, a)
 
 
@@ -153,7 +149,6 @@ def obb_accumulate(hi, lo, labels, mn, *, voxel_size: float = 0.1,
             hi, lo, labels, mn, voxel_size=voxel_size,
             max_clusters=max_clusters, num_angles=num_angles,
         )
-    global launches_morton
     build.require_cuda("obb_accumulate", hi, lo, labels, mn)
     n = hi.shape[0]
     for name, t in (("hi", hi), ("lo", lo), ("labels", labels)):
@@ -172,7 +167,7 @@ def obb_accumulate(hi, lo, labels, mn, *, voxel_size: float = 0.1,
         out.data_ptr(), build.stream(hi.device),
     )
     build.check(rc, "obb_accumulate")
-    launches_morton += 1
+    trace.count("kernel.obb_accumulate")
     return _unpack(out, k, a)
 
 

@@ -18,8 +18,8 @@ import functools
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
+from pointcloudhookup_tpu_torch.utils import trace
 
-launches = 0  # kernel launches in this process (read and reset by chip_smoke.py)
 
 _OPS = {"add": torch.add, "max": torch.maximum, "min": torch.minimum}
 _OP_CODES = {"add": 0, "max": 1, "min": 2}
@@ -42,7 +42,6 @@ def segmented_scan(values, is_start, op: str = "add", reverse: bool = False):
         raise ValueError(f"unsupported op {op!r}")
     if values.device.type == "cpu":
         return segmented_scan_plain(values, is_start, op, reverse)
-    global launches
     build.require_cuda("segmented_scan", values, is_start)
     n = values.shape[0]
     if values.dim() not in (1, 2) or values.dtype not in _DTYPE_CODES:
@@ -64,7 +63,7 @@ def segmented_scan(values, is_start, op: str = "add", reverse: bool = False):
     )
     build.check(rc, "segmented_scan")
     if n > 0:
-        launches += 1
+        trace.count("kernel.segmented_scan")
     return out
 
 

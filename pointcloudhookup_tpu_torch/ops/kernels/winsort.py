@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
+from pointcloudhookup_tpu_torch.utils import trace
 
-launches = 0  # window_sort_w calls that ran the kernel (read and reset by chip_smoke.py)
 
 PAD_K1 = 0xFFFFFFFF
 PAD_W = 0x7FFF
@@ -41,7 +41,6 @@ def window_sort_w(k1, w, window: int = 256):
     _check_window(window)
     if k1.device.type == "cpu":
         return window_sort_w_plain(k1, w, window)
-    global launches
     build.require_cuda("window_sort_w", k1, w)
     n = k1.shape[0]
     if k1.dtype != torch.int64 or k1.dim() != 1:
@@ -57,7 +56,8 @@ def window_sort_w(k1, w, window: int = 256):
         build.stream(k1.device),
     )
     build.check(rc, "window_sort_w")
-    launches += n > 0  # one call: one launch for both passes, more above 4,096 rows a window
+    if n > 0:  # one launch for both passes, more above 4,096 rows a window
+        trace.count("kernel.window_sort_w")
     return out
 
 

@@ -4,7 +4,8 @@ tensors.
 The two packages meet only through numpy: stats dicts, OBB accumulator
 dicts and the ``_cut`` intermediates of ``exact_extract_graph`` go through
 ``to_torch`` to feed a JAX result into a port stage, and port results come
-back through ``to_numpy``.  Dtypes map bool -> bool, int32 -> int32,
+back through ``to_numpy``, which counts each tensor it brings to the host
+as one ``fetch`` (``utils/trace.py``).  Dtypes map bool -> bool, int32 -> int32,
 float32 -> float32 and uint32 -> int64 (the port holds 32-bit keys in
 int64); ``to_numpy(..., u32=...)`` narrows named entries back to uint32.
 ``extract_params_from_dict`` carries a JAX ``ExtractParams`` across: the
@@ -23,6 +24,7 @@ from pointcloudhookup_tpu_torch.config import (
     GroundParams,
     TowerFilterParams,
 )
+from pointcloudhookup_tpu_torch.utils import trace
 
 _TO_TORCH = {
     np.dtype(np.bool_): torch.bool,
@@ -59,6 +61,7 @@ def to_numpy(tree, u32=()):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy(v, u32) for v in tree)
     if isinstance(tree, torch.Tensor):
+        trace.count("fetch")
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
 

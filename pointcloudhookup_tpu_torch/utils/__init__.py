@@ -1,3 +1,3 @@
 """Host-side utilities."""
 
-from pointcloudhookup_tpu_torch.utils.logging import Reporter, StageTracer  # noqa: F401
+from pointcloudhookup_tpu_torch.utils.logging import Reporter  # noqa: F401

@@ -27,6 +27,7 @@ from pointcloudhookup_tpu_torch.ops.kernels import (
     segscan,
     winsort,
 )
+from pointcloudhookup_tpu_torch.utils import trace
 
 # ------------------------------------------------------------------
 # Seeded numpy inputs and comparisons, shared with test_torch_kernels.py
@@ -340,13 +341,14 @@ def test_segscan_kernel_unaligned_views(cuda, shift):
     vt, ft = t(vals, cuda), t(flags, cuda)
     v = vt[1:] if shift in ("values", "both") else vt[:-1]
     f = ft[1:] if shift in ("flags", "both") else ft[:-1]
-    before = segscan.launches
+    before = trace.counter("kernel.segmented_scan")
     for op, reverse in SCAN_OPS:
         got = segscan.segmented_scan(v, f, op, reverse)
         ref = segscan.segmented_scan_plain(v, f, op, reverse)
         torch.cuda.synchronize()
         assert torch.equal(got, ref), (op, reverse)
-    assert segscan.launches == before + len(SCAN_OPS)  # the kernel, not the plain version
+    # the kernel, not the plain version
+    assert trace.counter("kernel.segmented_scan") == before + len(SCAN_OPS)
 
 
 def assert_sums_close(got, ref, vals, flags, reverse):
@@ -391,9 +393,9 @@ def test_segscan_kernel_columns(cuda, dtype, cols):
     vals = t(np.round(rng.normal(0, 50, (size, cols))).astype(dtype), cuda)
     flags = t(rng.random(size) < 0.1, cuda)
     for op, reverse in SCAN_OPS:
-        before = segscan.launches
+        before = trace.counter("kernel.segmented_scan")
         got = segscan.segmented_scan(vals, flags, op, reverse)
-        assert segscan.launches == before + 1
+        assert trace.counter("kernel.segmented_scan") == before + 1
         torch.cuda.synchronize()
         assert got.shape == (size, cols)
         for c in range(cols):
@@ -694,15 +696,16 @@ def test_obb_accum_kernel_edge_cases(cuda, case, variant):
     if variant == "xyz":
         args = tuple(t(v, cuda) for v in (xyz[:, 0], xyz[:, 1], xyz[:, 2], lab))
         kernel, plain, counter = (obb_accum.obb_accumulate_xyz,
-                                  obb_accum.obb_accumulate_xyz_plain, "launches")
+                                  obb_accum.obb_accumulate_xyz_plain,
+                                  "kernel.obb_accumulate_xyz")
     else:
         xyz = vox
         args = tuple(t(v, cuda) for v in (hi, lo, lab, mn))
         kernel, plain, counter = (obb_accum.obb_accumulate, obb_accum.obb_accumulate_plain,
-                                  "launches_morton")
-    before = getattr(obb_accum, counter)
+                                  "kernel.obb_accumulate")
+    before = trace.counter(counter)
     got = kernel(*args, max_clusters=k, num_angles=a)
-    assert getattr(obb_accum, counter) == before + 1
+    assert trace.counter(counter) == before + 1
     ref = plain(*args, max_clusters=k, num_angles=a)
     torch.cuda.synchronize()
     assert_acc_close({key: n(v) for key, v in got.items()},
@@ -764,11 +767,11 @@ def test_compact_indices_kernel_matches_plain(cuda, case):
     else:
         flag = flag_inputs(15, size + offset, n_set)
     flag = t(flag, cuda)[offset:]
-    before = compactidx.launches
+    before = trace.counter("kernel.compact_indices")
     got = compactidx.compact_indices(flag, m)
     ref = compactidx.compact_indices_plain(flag, m)
     torch.cuda.synchronize()
-    assert compactidx.launches == before + 1
+    assert trace.counter("kernel.compact_indices") == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, ref)
 
 
@@ -897,9 +900,9 @@ def test_winsort_kernel_matches_plain(cuda, case):
     size, window, max_run, kind = WINSORT_CASES[case]
     k1, w = winsort_inputs(17, size, max_run, kind)
     args = (t(k1, cuda), t(w, cuda), window)
-    before = winsort.launches
+    before = trace.counter("kernel.window_sort_w")
     got = winsort.window_sort_w(*args)
-    assert winsort.launches == before + 1
+    assert trace.counter("kernel.window_sort_w") == before + 1
     ref = winsort.window_sort_w_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
@@ -1181,16 +1184,16 @@ def test_modular_clustering_makes_no_host_sync(cuda):
     for fn in calls.values():  # builds the library, warms the allocator
         fn(x, keep)
     torch.cuda.synchronize()
+    counters = ("kernel.cluster_cells", "kernel.segmented_scan", "kernel.compact_rows_multi")
     for name in ("dbscan", "grid_dbscan", "adaptive_cluster"):
-        before = (cluster_converge.launches, segscan.launches, compactrows.launches)
+        before = [trace.counter(c) for c in counters]
         torch.cuda.set_sync_debug_mode("error")
         try:
             calls[name](x, keep)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        ran = [a - b for a, b in zip(
-            (cluster_converge.launches, segscan.launches, compactrows.launches), before)]
+        ran = [trace.counter(c) - b for c, b in zip(counters, before)]
         assert ran == ([1, 0, 0] if name == "dbscan" else [1, 2, 1]), (name, ran)
     kernels, _ = device_kernels(lambda: calls["dbscan"](x, keep))
     for k in ("boxes_kernel", "pop_kernel", "union_kernel", "compress_kernel",
@@ -1281,13 +1284,13 @@ def test_voxel_downsample_cuda_matches_cpu(cuda, chunk_size, voxel_size):
     x, m = t(xyz, cuda), t(mask, cuda)
     fn(x, m, voxel_size)  # builds the library, warms the allocator
     torch.cuda.synchronize()
-    before = segscan.launches
+    before = trace.counter("kernel.segmented_scan")
     torch.cuda.set_sync_debug_mode("error")
     try:
         got_xyz, got_mask = fn(x, m, voxel_size)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert segscan.launches == before + 1
+    assert trace.counter("kernel.segmented_scan") == before + 1
     assert torch.equal(got_mask.cpu(), ref_mask)
     n_out = int(ref_mask.sum())
     assert 0 < n_out < int(mask.sum())
@@ -1734,11 +1737,11 @@ def test_segment_rows_cuda_match_plain(cuda, dtype):
     assert torch.equal(start_g.cpu(), start_c)
     spans_g, spans_c = segments.segment_spans(start_g), segments.segment_spans(start_c)
     assert all(torch.equal(g.cpu(), c) for g, c in zip(spans_g, spans_c))
-    before = segscan.launches
+    before = trace.counter("kernel.segmented_scan")
     sum_g = segments.segment_sum_rows(t(vals, cuda), start_g, spans_g[1])
     mx_g = segments.segment_max_rows(t(vals, cuda), start_g)
     mn_g = segments.segment_min_rows(t(vals, cuda), start_g)
-    assert segscan.launches - before == 5
+    assert trace.counter("kernel.segmented_scan") - before == 5
     sum_c = segments.segment_sum_rows(t(vals), start_c, spans_c[1])
     assert torch.equal(mx_g.cpu(), segments.segment_max_rows(t(vals), start_c))
     assert torch.equal(mn_g.cpu(), segments.segment_min_rows(t(vals), start_c))

@@ -278,11 +278,17 @@ def test_port_never_imports_jax(tmp_path):
     assert "ranks ok" in res.stdout
 
 
+# (package, JAX name) -> (port module, its replacement): StageTracer's stage
+# walls are the spans of the port's one tracer
+REPLACED = {(".utils", "StageTracer"): ("pointcloudhookup_tpu_torch.utils.trace", "span")}
+
+
 @pytest.mark.parametrize("package", ["", ".ops", ".models", ".core", ".utils", ".viz", ".io",
                                      ".parallel"])
 def test_public_names_mirror_jax(package):
     """Every name that an __init__.py of the JAX package exports imports
-    from the port's __init__.py of the same layout."""
+    from the port's __init__.py of the same layout, but for the names the
+    port replaced on purpose, whose replacement must exist (REPLACED)."""
     import importlib
 
     ref = importlib.import_module("pointcloudhookup_tpu" + package)
@@ -290,8 +296,12 @@ def test_public_names_mirror_jax(package):
     names = [n for n, v in vars(ref).items()
              if not n.startswith("_") and not isinstance(v, type(importlib))]
     assert names or package == ""
-    missing = [n for n in names if not hasattr(mine, n)]
+    replaced = {n: r for (p, n), r in REPLACED.items() if p == package}
+    missing = [n for n in names if not hasattr(mine, n) and n not in replaced]
     assert not missing, missing
+    for name, (module, attr) in replaced.items():
+        assert not hasattr(mine, name), name
+        assert callable(getattr(importlib.import_module(module), attr)), (name, module, attr)
     if package == "":
         assert mine.__version__ == ref.__version__
 
