@@ -42,6 +42,7 @@ from pointcloudhookup_tpu_torch.io.cbm import apply_corrections, load_towers_fro
 from pointcloudhookup_tpu_torch.io.gim import extract_gim, write_gim
 from pointcloudhookup_tpu_torch.io.las import make_las, read_las, write_las
 from pointcloudhookup_tpu_torch.models.towers import Tower, extract_step, towers_from_stats
+from pointcloudhookup_tpu_torch.native import prepare_tile
 from pointcloudhookup_tpu_torch.ops.frontend_exact import (
     exact_cell_plan,
     exact_extract_graph,
@@ -199,10 +200,11 @@ def extract(
     return towers
 
 
-def _exact_fast_plan(points: np.ndarray, params: ExtractParams, cap: int):
+def _exact_fast_plan(points: np.ndarray, params: ExtractParams, cap: int, span=None):
     """Host-side routing decision for the exact front-end, identical to
     the JAX package's: the static cell-key bit plan, or None when the tile
-    would take the modular path."""
+    would take the modular path.  ``span`` is the tile's per-axis
+    ``max - min`` where the caller has it already."""
     cp = params.cluster
     if cp.per_chunk or cp.method not in ("auto", "grid"):
         return None
@@ -213,7 +215,8 @@ def _exact_fast_plan(points: np.ndarray, params: ExtractParams, cap: int):
         return None
     if not len(points):
         return None
-    span = points.max(axis=0) - points.min(axis=0)
+    if span is None:
+        span = points.max(axis=0) - points.min(axis=0)
     return exact_cell_plan(span, cp.eps)
 
 
@@ -310,21 +313,7 @@ def extract_from_points(
     cells_overflow)."""
     with trace.span("extract"):
         with trace.span("extract.prepare"):
-            points = np.asarray(points, np.float64).reshape(-1, 3)
-            origin = points.mean(axis=0) if len(points) else np.zeros(3)
-            if capacity is not None:
-                cap = capacity
-            elif params.cluster.per_chunk:
-                cap = round_up(max(len(points), 1), params.cluster.chunk_size)
-            elif len(points) > params.cluster.auto_grid_threshold:
-                cap = round_up(max(len(points), 1), 32768)
-            else:
-                cap = round_up(max(len(points), 1), 1024)
-            xyz = np.zeros((cap, 3), np.float32)
-            xyz[: len(points)] = (points - origin).astype(np.float32)
-            mask = np.zeros(cap, bool)
-            mask[: len(points)] = True
-            plan = _exact_fast_plan(points, params, cap)
+            origin, xyz, mask, plan = _prepare_tile(points, params, capacity)
 
         stats = None
         if plan is not None:
@@ -334,6 +323,37 @@ def extract_from_points(
         with trace.span("extract.finish"):
             towers = towers_from_stats(stats, origin)
     return towers, stats, origin
+
+
+def _prepare_tile(points, params: ExtractParams, capacity: Optional[int]):
+    """A tile's host preparation: (origin f64[3], xyz f32[cap, 3] centred
+    on it with zero padding rows, mask bool[cap], the exact path's plan).
+    Where ``native.prepare_tile`` takes the rows (a C-ordered f64 array
+    with no NaN or inf) two native passes prepare it, counted as
+    ``extract.prepare.native``; otherwise numpy does, with the same bits."""
+    points = np.asarray(points, np.float64).reshape(-1, 3)
+    n = len(points)
+    if capacity is not None:
+        cap = capacity
+    elif params.cluster.per_chunk:
+        cap = round_up(max(n, 1), params.cluster.chunk_size)
+    elif n > params.cluster.auto_grid_threshold:
+        cap = round_up(max(n, 1), 32768)
+    else:
+        cap = round_up(max(n, 1), 1024)
+    prepared = prepare_tile(points, cap)
+    if prepared is None:
+        origin = points.mean(axis=0) if n else np.zeros(3)
+        xyz = np.zeros((cap, 3), np.float32)
+        xyz[:n] = (points - origin).astype(np.float32)
+        span = None
+    else:
+        trace.count("extract.prepare.native")
+        origin, xyz, span = prepared
+    mask = np.empty(cap, bool)
+    mask[:n] = True
+    mask[n:] = False
+    return origin, xyz, mask, _exact_fast_plan(points, params, cap, span)
 
 
 def _extract_stats_modular(xyz: np.ndarray, mask: np.ndarray, params: ExtractParams,

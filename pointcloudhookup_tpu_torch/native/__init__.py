@@ -6,8 +6,9 @@ decoder of the tile streamer (``las_codec.cpp``: ``las_probe``,
 ``io/laz.py`` reads and writes with (``laz_codec.cpp``).  Each compiles
 with g++ on first use into ``<repo>/build/native/``, keyed by a hash of the
 source, never next to the source.  Without a compiler the LAS functions
-return None (the caller reads with ``io/las.py``), ``get_laz_lib`` returns
-None and reading or writing a .laz file raises.
+return None (the caller reads with ``io/las.py``), ``prepare_tile`` returns
+None (the caller prepares with numpy), ``get_laz_lib`` returns None and
+reading or writing a .laz file raises.
 """
 
 from __future__ import annotations
@@ -28,11 +29,11 @@ _BUILD = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build", "native")
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 # x * scale + offset rounded twice, as numpy computes io/las.py's xyz()
 _LAS_FLAGS = _FLAGS + ("-ffp-contract=off",)
+_PREP_SRC = os.path.join(_DIR, "prepare.cpp")
+# sums in row order and p - origin rounded as numpy rounds them
+_PREP_FLAGS = _LAS_FLAGS + ("-pthread",)
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_tried = False
-_laz_lib: Optional[ctypes.CDLL] = None
-_laz_tried = False
+_libs: dict = {}  # source -> its loaded library, or None once it failed
 
 
 def _library_path(src: str, flags=_FLAGS) -> str:
@@ -57,75 +58,118 @@ def _build(src: str, so: str, flags=_FLAGS) -> bool:
     return True
 
 
+def _load(src: str, flags, bind) -> Optional[ctypes.CDLL]:
+    """The library of ``src``, built with ``flags`` on first use and given
+    its signatures by ``bind``; None when it cannot be built or loaded
+    (tried once a process)."""
+    with _lock:
+        if src not in _libs:
+            so = _library_path(src, flags)
+            lib = None
+            if os.path.exists(so) or _build(src, so, flags):
+                try:
+                    lib = ctypes.CDLL(so)
+                except OSError:
+                    pass
+            if lib is not None:
+                bind(lib)
+            _libs[src] = lib
+        return _libs[src]
+
+
+def _bind_las(lib) -> None:
+    dp = ctypes.POINTER(ctypes.c_double)
+    lib.las_probe.restype = ctypes.c_longlong
+    lib.las_probe.argtypes = [ctypes.c_char_p, dp, dp, ctypes.POINTER(ctypes.c_int)]
+    lib.las_read_xyz.restype = ctypes.c_longlong
+    lib.las_read_xyz.argtypes = [ctypes.c_char_p, dp, ctypes.c_longlong]
+    lib.las_read_xyz_range.restype = ctypes.c_longlong
+    lib.las_read_xyz_range.argtypes = [ctypes.c_char_p, dp, ctypes.c_longlong,
+                                       ctypes.c_longlong]
+
+
+def _bind_laz(lib) -> None:
+    decode_args = [
+        ctypes.POINTER(ctypes.c_ubyte),
+        ctypes.c_longlong,
+        ctypes.c_longlong,
+        ctypes.c_longlong,
+        ctypes.c_int,
+        ctypes.c_uint,
+        ctypes.POINTER(ctypes.c_ubyte),
+    ]
+    encode_args = [
+        ctypes.POINTER(ctypes.c_ubyte),
+        ctypes.c_longlong,
+        ctypes.c_int,
+        ctypes.c_uint,
+        ctypes.POINTER(ctypes.c_ubyte),
+        ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_longlong),
+    ]
+    # formats 0-3 (compressor 2) and the LAS 1.4 layered 6-10 (3)
+    for fn, args in ((lib.laz_decode_points, decode_args),
+                     (lib.laz_decode_points14, decode_args),
+                     (lib.laz_encode_points, encode_args),
+                     (lib.laz_encode_points14, encode_args)):
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = args
+
+
+def _bind_prepare(lib) -> None:
+    dp = ctypes.POINTER(ctypes.c_double)
+    lib.prep_stats.restype = None
+    lib.prep_stats.argtypes = [dp, ctypes.c_longlong, dp]
+    lib.prep_centre.restype = None
+    lib.prep_centre.argtypes = [dp, ctypes.c_longlong, dp, ctypes.POINTER(ctypes.c_float),
+                                ctypes.c_longlong, ctypes.c_int]
+
+
 def get_lib() -> Optional[ctypes.CDLL]:
     """The LAS xyz decoder, built on first use; None when no compiler is
     available (callers fall back to io/las.py)."""
-    global _lib, _tried
-    with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        so = _library_path(_SRC, _LAS_FLAGS)
-        if not os.path.exists(so) and not _build(_SRC, so, _LAS_FLAGS):
-            return None
-        try:
-            lib = ctypes.CDLL(so)
-        except OSError:
-            return None
-        dp = ctypes.POINTER(ctypes.c_double)
-        lib.las_probe.restype = ctypes.c_longlong
-        lib.las_probe.argtypes = [ctypes.c_char_p, dp, dp, ctypes.POINTER(ctypes.c_int)]
-        lib.las_read_xyz.restype = ctypes.c_longlong
-        lib.las_read_xyz.argtypes = [ctypes.c_char_p, dp, ctypes.c_longlong]
-        lib.las_read_xyz_range.restype = ctypes.c_longlong
-        lib.las_read_xyz_range.argtypes = [ctypes.c_char_p, dp, ctypes.c_longlong,
-                                           ctypes.c_longlong]
-        _lib = lib
-        return _lib
+    return _load(_SRC, _LAS_FLAGS, _bind_las)
 
 
 def get_laz_lib() -> Optional[ctypes.CDLL]:
     """The LAZ point codec, built on first use; None when no compiler is
     available."""
-    global _laz_lib, _laz_tried
-    with _lock:
-        if _laz_lib is not None or _laz_tried:
-            return _laz_lib
-        _laz_tried = True
-        so = _library_path(_LAZ_SRC)
-        if not os.path.exists(so) and not _build(_LAZ_SRC, so):
-            return None
-        try:
-            lib = ctypes.CDLL(so)
-        except OSError:
-            return None
-        decode_args = [
-            ctypes.POINTER(ctypes.c_ubyte),
-            ctypes.c_longlong,
-            ctypes.c_longlong,
-            ctypes.c_longlong,
-            ctypes.c_int,
-            ctypes.c_uint,
-            ctypes.POINTER(ctypes.c_ubyte),
-        ]
-        encode_args = [
-            ctypes.POINTER(ctypes.c_ubyte),
-            ctypes.c_longlong,
-            ctypes.c_int,
-            ctypes.c_uint,
-            ctypes.POINTER(ctypes.c_ubyte),
-            ctypes.c_longlong,
-            ctypes.POINTER(ctypes.c_longlong),
-        ]
-        # formats 0-3 (compressor 2) and the LAS 1.4 layered 6-10 (3)
-        for fn, args in ((lib.laz_decode_points, decode_args),
-                         (lib.laz_decode_points14, decode_args),
-                         (lib.laz_encode_points, encode_args),
-                         (lib.laz_encode_points14, encode_args)):
-            fn.restype = ctypes.c_longlong
-            fn.argtypes = args
-        _laz_lib = lib
-        return _laz_lib
+    return _load(_LAZ_SRC, _FLAGS, _bind_laz)
+
+
+def get_prepare_lib() -> Optional[ctypes.CDLL]:
+    """The tile preparation passes, built on first use; None when no
+    compiler is available (the caller prepares with numpy)."""
+    return _load(_PREP_SRC, _PREP_FLAGS, _bind_prepare)
+
+
+def prepare_tile(points: np.ndarray, cap: int):
+    """(origin f64[3], xyz f32[cap, 3], span f64[3]) of a tile's f64 rows,
+    bit-identical to numpy's ``points.mean(axis=0)``, the rows' f32
+    ``points - origin`` followed by zero rows, and ``points.max(axis=0) -
+    points.min(axis=0)``.  None means: prepare it with numpy.  That is the
+    case without a compiler, for rows that are not a C-ordered f64 [N, 3]
+    with 1 <= N <= cap (numpy sums other layouts in another order), and for
+    a tile holding a NaN or an inf (its sums are not finite)."""
+    n = len(points)
+    if (points.dtype != np.float64 or points.ndim != 2 or points.shape[1] != 3
+            or not points.flags.c_contiguous or not 0 < n <= cap):
+        return None
+    lib = get_prepare_lib()
+    if lib is None:
+        return None
+    dp = ctypes.POINTER(ctypes.c_double)
+    stats = np.empty(9, np.float64)
+    lib.prep_stats(points.ctypes.data_as(dp), n, stats.ctypes.data_as(dp))
+    if not np.isfinite(stats[:3]).all():
+        return None
+    origin = stats[:3] / n  # as numpy's mean divides its sum
+    xyz = np.empty((cap, 3), np.float32)
+    # elementwise, so split over threads: one a million rows, at most 4
+    threads = max(1, min(4, os.cpu_count() or 1, cap >> 20))
+    lib.prep_centre(points.ctypes.data_as(dp), n, origin.ctypes.data_as(dp),
+                    xyz.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), cap, threads)
+    return origin, xyz, stats[6:] - stats[3:6]
 
 
 def las_probe(path: str):

@@ -4,6 +4,8 @@ extract() on a LAS file, the CLI, and tiles the exact path does not take,
 which run the modular extract_step (tests/test_torch_modular.py holds
 that path in every method)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -165,3 +167,154 @@ def test_ineligible_tile_raises(corridor, cluster):
     for t, jt in zip(towers, j_towers):
         assert (t.label, t.num_points) == (jt.label, jt.num_points)
         np.testing.assert_allclose(t.center, jt.center, atol=1.0)
+
+
+# ------------------------------------------------- the tile's preparation
+GRID = ExtractParams(cluster=ClusterParams(eps=5.0, method="grid"))
+
+
+def _numpy_prepare(points, params, capacity):
+    """The numpy lines extract_from_points prepared every tile with before
+    the native passes; the reference for both paths of _prepare_tile."""
+    points = np.asarray(points, np.float64).reshape(-1, 3)
+    origin = points.mean(axis=0) if len(points) else np.zeros(3)
+    if capacity is not None:
+        cap = capacity
+    elif params.cluster.per_chunk:
+        cap = tpipe.round_up(max(len(points), 1), params.cluster.chunk_size)
+    elif len(points) > params.cluster.auto_grid_threshold:
+        cap = tpipe.round_up(max(len(points), 1), 32768)
+    else:
+        cap = tpipe.round_up(max(len(points), 1), 1024)
+    xyz = np.zeros((cap, 3), np.float32)
+    xyz[: len(points)] = (points - origin).astype(np.float32)
+    mask = np.zeros(cap, bool)
+    mask[: len(points)] = True
+    return origin, xyz, mask, tpipe._exact_fast_plan(points, params, cap)
+
+
+def _outcome(fn, *args):
+    try:
+        return fn(*args)
+    except (ValueError, OverflowError) as err:  # a NaN or inf span's plan
+        return type(err)
+
+
+def _assert_bits_equal(got, ref):
+    if isinstance(ref, type):
+        assert got is ref
+        return
+    (origin, xyz, mask, plan), (r_origin, r_xyz, r_mask, r_plan) = got, ref
+    assert origin.dtype == np.float64 and xyz.dtype == np.float32 and mask.dtype == bool
+    assert xyz.shape == r_xyz.shape and mask.shape == r_mask.shape  # the cap
+    np.testing.assert_array_equal(origin.view(np.int64), r_origin.view(np.int64))
+    np.testing.assert_array_equal(xyz.view(np.int32), r_xyz.view(np.int32))
+    np.testing.assert_array_equal(mask, r_mask)
+    assert plan == r_plan
+
+
+def _las_like(rng, n, scale):
+    """Rows as io/las.py decodes them: int32 * scale + offset, projected
+    corridor coordinates (~5e5 east, ~3.3e6 north, 0-80 m up)."""
+    ints = np.column_stack([
+        rng.integers(0, int(2_000 / scale), n),
+        rng.integers(0, int(2_000 / scale), n),
+        rng.integers(0, int(80 / scale), n),
+    ]).astype(np.int32)
+    return np.column_stack([ints[:, 0] * scale + 500_000.0,
+                            ints[:, 1] * scale + 3_300_000.0,
+                            ints[:, 2] * scale + 12.5])
+
+
+@pytest.mark.parametrize("given_cap", [False, True], ids=["cap-derived", "cap-given"])
+@pytest.mark.parametrize("kind", ["las-0.01", "las-0.001", "random"])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 1_023, 1_024, 32_769, 1_000_003])
+def test_prepare_tile_native_is_numpy_bit_for_bit(n, kind, given_cap):
+    """The two native passes give the numpy lines' origin, padded f32 rows,
+    mask, capacity and exact plan bit for bit, and are counted once."""
+    rng = np.random.default_rng(n)
+    if kind == "random":
+        points = rng.normal(0.0, 1e2, (n, 3)) + rng.uniform(-1e6, 1e6, 3)
+    else:
+        points = _las_like(rng, n, float(kind.split("-")[1]))
+    # a given capacity: a multiple of 32768 with padding, so the plan is made
+    capacity = tpipe.round_up(n + 5, 32768) if given_cap else None
+    before = tpipe.trace.counter("extract.prepare.native")
+    got = tpipe._prepare_tile(points, GRID, capacity)
+    assert tpipe.trace.counter("extract.prepare.native") == before + 1
+    _assert_bits_equal(got, _numpy_prepare(points, GRID, capacity))
+    assert (got[3] is not None) == (got[1].shape[0] % 32768 == 0)
+
+
+# rows the native passes do not take (False), and two they take once
+# converted to a C-ordered f64 array (True)
+LAYOUTS = {
+    "fortran": False, "strided": False, "float32": True, "float32-fortran": False,
+    "nan": False, "inf": False, "minus-inf": False, "empty": False, "flat-list": True,
+}
+
+
+def _layout(name):
+    rows = _las_like(np.random.default_rng(5), 40_000, 0.01)
+    if name == "nan":
+        rows[123, 1] = np.nan
+    elif name == "inf":
+        rows[39_999, 2] = np.inf
+    elif name == "minus-inf":
+        rows[0, 0] = -np.inf
+    elif name == "fortran":
+        rows = np.asfortranarray(rows)
+    elif name == "strided":
+        rows = np.repeat(rows, 2, axis=0)[::2]
+    elif name == "float32":
+        rows = rows.astype(np.float32)
+    elif name == "float32-fortran":
+        rows = np.asfortranarray(rows.astype(np.float32))
+    elif name == "empty":
+        rows = np.zeros((0, 3))
+    elif name == "flat-list":
+        rows = rows[:9].ravel().tolist()
+    return rows
+
+
+@pytest.mark.parametrize("capacity", [None, 65536], ids=["cap-derived", "cap-given"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_prepare_tile_other_layouts_take_numpy(layout, capacity):
+    """Rows that are not a C-ordered f64 array after conversion, and tiles
+    with a NaN or inf or no rows, take the numpy lines and get their result
+    (an error where the lines raise on a NaN or inf span's plan)."""
+    points = _layout(layout)
+    before = tpipe.trace.counter("extract.prepare.native")
+    got = _outcome(tpipe._prepare_tile, points, GRID, capacity)
+    _assert_bits_equal(got, _outcome(_numpy_prepare, points, GRID, capacity))
+    assert tpipe.trace.counter("extract.prepare.native") == before + LAYOUTS[layout]
+
+
+def test_extract_from_points_with_and_without_the_native_passes(tile, jax_result, monkeypatch):
+    """extract_from_points gives the same towers, stats and origin, the JAX
+    package's, whether the native passes prepare the tile (counted once a
+    call) or numpy does (no native library: counted never)."""
+    from pointcloudhookup_tpu_torch import native
+
+    pts, centers = tile
+    runs = []
+    for lib in ("native", None):
+        if lib is None:
+            monkeypatch.setattr(native, "get_prepare_lib", lambda: None)
+        before = tpipe.trace.counter("extract.prepare.native")
+        runs.append(tpipe.extract_from_points(pts, PARAMS, capacity=CAP, device="cpu"))
+        assert tpipe.trace.counter("extract.prepare.native") == before + (lib is not None)
+    (towers, stats, origin), (n_towers, n_stats, n_origin) = runs
+    np.testing.assert_array_equal(origin.view(np.int64), n_origin.view(np.int64))
+    np.testing.assert_array_equal(origin, jax_result[2])
+    assert stats.keys() == n_stats.keys()
+    for key in stats:
+        if key in ("ladder", "modular"):
+            assert stats[key] == n_stats[key]
+        else:
+            np.testing.assert_array_equal(stats[key], n_stats[key])
+    _assert_same_extraction(stats, jax_result[1])
+    assert len(towers) == len(n_towers) == len(centers)
+    for t, nt in zip(towers, n_towers):
+        for field in dataclasses.fields(t):
+            np.testing.assert_array_equal(getattr(t, field.name), getattr(nt, field.name))

@@ -181,6 +181,8 @@ def test_extract_spans_in_order_and_ladder_steps(monkeypatch, eps, n_veg, max_ce
     assert trace.counter("extract.ladder_step") - steps0 == steps
     (top,) = [s for s in trace.spans() if s.name == "extract"]
     assert top.counts == {"extract.ladder_step": steps}
+    (prep,) = [s for s in trace.spans() if s.name == "extract.prepare"]
+    assert prep.counts == {"extract.prepare.native": 1}  # the native passes
     cap = stats["labels"].shape[0]
     # one f32 [cap, 3] and one bool [cap] upload, however many steps
     assert trace.counter("upload_bytes") - up0 == cap * 13
