@@ -8,6 +8,12 @@ refined by aligning an idealised pylon frame, built from the tower's box
 batched point-to-point ICP, in three stages of shrinking correspondence
 radius; the refined centre is the box centre plus the composed
 translations (float64 on the host).
+
+Spans (``utils/trace.py``): ``icp.refine`` round the call, ``icp.stage``
+round each of the three stages, and inside each stage ``icp.pack`` (the
+frames and tower-local clouds in the first, the re-based targets and the
+padded batch), then ``solve_pairs``' ``icp.upload``, ``icp.solve`` and
+``icp.fetch``.  The counter ``icp.towers`` counts the pairs refined.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from pointcloudhookup_tpu_torch.models.towers import Tower
+from pointcloudhookup_tpu_torch.utils import trace
 
 
 def tower_frame_template(
@@ -72,38 +79,45 @@ def refine_tower_centers(
     template_params: optional {pc_index: (height, width)} overriding the
     frame geometry (either may be None to keep the box's value).  Returns
     {pc_index: dict(center f64[3], rmse, inlier_frac, shift f64[3])}."""
-    from pointcloudhookup_tpu_torch.ops.registration import register_tower_pairs
+    from pointcloudhookup_tpu_torch.ops.registration import pad_pairs, solve_pairs
 
-    idx, src, dst = [], [], []
-    for pi in pair_indices:
-        if pi >= len(clouds) or clouds[pi] is None or len(clouds[pi]) < 16:
-            continue
-        t = towers[pi]
-        # width: the smaller horizontal extent, which a one-sided artifact
-        # rarely inflates
-        height, width = t.height, float(t.extent[1])
-        if template_params and pi in template_params:
-            th, tw = template_params[pi]
-            height = float(th) if th else height
-            width = float(tw) if tw else width
-        idx.append(pi)
-        src.append(tower_frame_template(height, width, yaw=t.angle))
-        dst.append((np.asarray(clouds[pi], np.float64) - t.center).astype(np.float32))
-    if not idx:
-        return {}
-    # coarse to fine: unbounded (bulk alignment), then 4x, then the radius
-    # itself; each stage re-bases the target by the translation so far
-    stage_iters = max(iters // 3, 5)
-    stages = [(np.inf, stage_iters), (4.0 * max_corr_dist, stage_iters),
-              (max_corr_dist, stage_iters)]
-    shifts = [np.zeros(3) for _ in idx]
-    last = None
-    for radius, it in stages:
-        moved = [(d - s).astype(np.float32) for d, s in zip(dst, shifts)]
-        last = register_tower_pairs(src, moved, iters=it, max_corr_dist=radius,
-                                    device=device)
-        for i, r in enumerate(last):
-            shifts[i] = shifts[i] + np.asarray(r["t"], np.float64)
+    with trace.span("icp.refine"):
+        idx, frames = [], []
+        for pi in pair_indices:
+            if pi >= len(clouds) or clouds[pi] is None or len(clouds[pi]) < 16:
+                continue
+            t = towers[pi]
+            # width: the smaller horizontal extent, which a one-sided artifact
+            # rarely inflates
+            height, width = t.height, float(t.extent[1])
+            if template_params and pi in template_params:
+                th, tw = template_params[pi]
+                height = float(th) if th else height
+                width = float(tw) if tw else width
+            idx.append(pi)
+            frames.append((height, width, t.angle))
+        if not idx:
+            return {}
+        trace.count("icp.towers", len(idx))
+        # coarse to fine: unbounded (bulk alignment), then 4x, then the radius
+        # itself; each stage re-bases the target by the translation so far
+        stage_iters = max(iters // 3, 5)
+        stages = [(np.inf, stage_iters), (4.0 * max_corr_dist, stage_iters),
+                  (max_corr_dist, stage_iters)]
+        shifts = [np.zeros(3) for _ in idx]
+        src = dst = last = None
+        for radius, it in stages:
+            with trace.span("icp.stage"):
+                with trace.span("icp.pack"):
+                    if src is None:
+                        src = [tower_frame_template(h, w, yaw=a) for h, w, a in frames]
+                        dst = [(np.asarray(clouds[pi], np.float64) - towers[pi].center)
+                               .astype(np.float32) for pi in idx]
+                    moved = [(d - s).astype(np.float32) for d, s in zip(dst, shifts)]
+                    batch = pad_pairs(src, moved)
+                last = solve_pairs(batch, iters=it, max_corr_dist=radius, device=device)
+            for i, r in enumerate(last):
+                shifts[i] = shifts[i] + np.asarray(r["t"], np.float64)
     return {
         pi: dict(center=towers[pi].center + shifts[i], rmse=r["rmse"],
                  inlier_frac=r["inlier_frac"], shift=shifts[i])

@@ -1,5 +1,5 @@
 """The port's tracer (``utils/trace.py``) and its spans and counters in the
-extraction, compress and streaming paths, on the CPU."""
+extraction, compress, streaming and ICP paths, on the CPU."""
 
 import json
 import threading
@@ -238,3 +238,59 @@ def test_kernel_counters_count_cuda_calls_only():
     before = trace.counter("kernel.segmented_scan")
     segscan.segmented_scan(torch.ones(8), torch.zeros(8, dtype=torch.bool))
     assert trace.counter("kernel.segmented_scan") == before  # the plain version ran
+
+
+def _icp_section():
+    """Two extracted towers, their member rows and a GIM record of each at
+    its box centre (h = z - 25 m, 杆塔高 42 m), in EPSG:4547."""
+    from pointcloudhookup_tpu_torch.ops.geo import tm_forward, tm_inverse
+
+    e0, n0 = (float(v) for v in tm_forward(113.5, 28.2))
+    pts, _ = synthetic_corridor(np.random.default_rng(10), n_ground=4000, n_veg=0,
+                                towers=((0.0, 0.0), (150.0, 20.0)), pts_per_tower=400,
+                                extent=250.0, origin=(e0, n0, 80.0))
+    params = ExtractParams(cluster=ClusterParams(eps=5.0, min_points=30, auto_grid_threshold=1000))
+    towers, stats, _ = pipeline.extract_from_points(pts, params, device="cpu")
+    labels = stats["labels"][: len(pts)]
+    records = []
+    for i, t in enumerate(towers):
+        lon, lat = (float(v) for v in tm_inverse(t.center[0], t.center[1]))
+        records.append(dict(lat=lat, lng=lon, h=float(t.center[2]) - 25.0, r=5.0,
+                            properties={"杆塔编号": f"P{i}", "杆塔高": "42.0"}))
+    return towers, [pts[labels == t.label] for t in towers], records
+
+
+def test_correct_icp_spans_and_counters():
+    towers, clouds, records = _icp_section()
+    keys = ("icp.sweeps", "icp.towers", "upload_bytes", "fetch")
+    before = {k: trace.counter(k) for k in keys}
+    trace.enable()
+    res = pipeline.correct(records, towers, icp=True, pc_clouds=clouds, device="cpu")
+    trace.disable()
+    got = trace.spans()
+    assert len(res.pairs) == len(towers) == 2
+    stage = ["icp.stage", "icp.pack", "icp.upload", "icp.solve", "icp.fetch"]
+    assert names(got) == ["gim.correct", "icp.refine"] + stage * 3
+    by = {}
+    for s in got:
+        by.setdefault(s.name, []).append(s)
+    (correct,), (refine,) = by["gim.correct"], by["icp.refine"]
+    assert refine.parent == correct.id
+    assert all(s.parent == refine.id for s in by["icp.stage"])
+    stages = {s.id for s in by["icp.stage"]}
+    for name in stage[1:]:
+        assert len(by[name]) == 3 and all(s.parent in stages for s in by[name])
+    assert refine.counts == {"icp.towers": 2}
+    assert [s.counts for s in by["icp.solve"]] == [{"icp.sweeps": 11}] * 3
+    assert [s.counts for s in by["icp.fetch"]] == [{"fetch": 4}] * 3  # R, t, rmse, inlier share
+    # a stage uploads the padded batch: 280 frame rows and the largest
+    # cloud, f32 xyz and a bool mask a row
+    batch = 13 * 2 * (280 + max(len(c) for c in clouds))
+    assert [s.counts for s in by["icp.upload"]] == [{"upload_bytes": batch}] * 3
+    delta = {k: trace.counter(k) - before[k] for k in keys}
+    assert delta == {"icp.sweeps": 33, "icp.towers": 2, "upload_bytes": 3 * batch, "fetch": 12}
+    # the tracer off: no span, the totals still count
+    trace.reset()
+    pipeline.correct(records, towers, icp=True, pc_clouds=clouds, device="cpu")
+    assert trace.spans() == []
+    assert trace.counter("icp.sweeps") - before["icp.sweeps"] == 66
