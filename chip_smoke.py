@@ -61,9 +61,12 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
  10. registration and tile streaming: (a) ``correct --icp --save`` through
      ``__main__.main`` on 9 (a)'s files with no plain version allowed: 24
      refined pairs inside their boxes, the card within 1 mm of the CPU, the
-     saved GIM reopens, no kernel in the ICP; (b) config 4's batched_icp
-     (50 x 2,048, 20 iterations): the planted motions recovered, the card
-     vs the CPU, ms a call, host syncs an iteration; (c) ``register``: 24
+     saved GIM reopens, one nearest-sweep kernel launch a sweep and none of
+     the ten; (b) config 4's batched_icp (50 x 2,048, 20 iterations): the
+     planted motions recovered, the card vs the CPU, ms a call, host syncs
+     an iteration; the nearest-sweep kernel (csrc/nearest.cu) at config 4's
+     and icp50.correct's shapes: bit-equal to its plain version, event and
+     device ms beside its bound and the plain version's, launches; (c) ``register``: 24
      transforms, the ICP's peak memory within its bound; (d) stream_extract
      over 50 LAS tiles of 1,048,576 points with config 5's parameters: 24
      towers a tile, 1,200 after the cross-tile dedup, the native reader,
@@ -158,15 +161,17 @@ BENCH_ITERS = 10
 # phase 10: config 4's ICP batch, the register bound, config 5's tiles
 ICP_BATCH, ICP_POINTS, ICP_ITERS = 50, 2048, 20
 ICP_CPU_TOWERS = 4  # (b) holds the card against the CPU on this many towers
+SWEEP_PROFILE_CALLS = 5  # (b): nearest-sweep calls in one profile
 # (a): the towers whose boxes adopted vegetation, whose refined centres the
 # JAX refinement also leaves beyond TOWER_TOL_M of the member centroid on
 # the same member clouds (tests/test_torch_registration.py::
 # test_refine_widened_boxes_match_jax; scripts/torch_icp_widened_fixture.py)
 ICP_WIDENED = (2, 10)
-# (c): a d2 tile holds at most 2**25 float32 elements (128 MiB); at most four
-# tensors of its size are alive at once (the last tile's d2, the running sum
-# and two product terms of the fused multiply-adds): 512 MiB, bounded at 1.5
-# times that for the clouds and the caching allocator's rounding
+# (c): the bound of the plain sweep's tiles (a d2 tile holds at most 2**25
+# float32 elements, 128 MiB; at most four tensors of its size alive at once,
+# 512 MiB, and half that again for the clouds and the caching allocator's
+# rounding); the card's sweep (csrc/nearest.cu) builds no tile, so its peak
+# is the batch and Kabsch's [B, N, 3, 3] products, far below
 REGISTER_PEAK_BOUND = 768 << 20
 STREAM_TILES, STREAM_TILE_N, STREAM_SHIFT_M = 50, 1 << 20, 4500.0
 
@@ -917,6 +922,86 @@ def config4_batch():
     return src, np.ones((b, n), bool), dst, rots, ts
 
 
+def config4_sweep(src, mask, dst):
+    """(a) config 4's batch as one sweep's inputs: the frame rows moved by
+    a small rotation about z and a shift (seed 1)."""
+    rng = np.random.default_rng(1)
+    ang = rng.uniform(-0.05, 0.05, len(src))
+    r = np.stack([[[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+                  for a in ang]).astype(np.float32)
+    return src, mask, dst, mask, r, rng.uniform(-0.3, 0.3, (len(src), 3)).astype(np.float32)
+
+
+def icp50_sweep():
+    """One sweep of the icp50.correct cell's shape: 50 tower frames of 280
+    rows (models/refine.py::tower_frame_template, 30-45 m high, 8-14 m
+    wide) against lattice-tower member clouds of 12,000-14,000 rows padded
+    to 14,000 with prefix masks, a small rotation and shift (seed 2)."""
+    from pointcloudhookup_tpu_torch.models.refine import tower_frame_template
+
+    rng = np.random.default_rng(2)
+    b, m = ICP_BATCH, 14_000
+    src = np.stack([tower_frame_template(rng.uniform(30, 45), rng.uniform(8, 14))
+                    for _ in range(b)])
+    t_param = rng.uniform(0, 1, (b, m))
+    half = 6.0 * (1 - 0.7 * t_param)
+    dst = np.stack([rng.uniform(-1, 1, (b, m)) * half, rng.uniform(-1, 1, (b, m)) * half,
+                    t_param * 35.0 - 17.5], axis=-1).astype(np.float32)
+    dm = np.arange(m)[None, :] < rng.integers(12_000, m + 1, (b, 1))
+    ang = rng.uniform(-0.05, 0.05, b)
+    r = np.stack([[[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+                  for a in ang]).astype(np.float32)
+    return (src, np.ones(src.shape[:2], bool), dst, dm, r,
+            rng.uniform(-0.3, 0.3, (b, 3)).astype(np.float32))
+
+
+def nearest_sweep_case(label, arrays, dev):
+    """nearest_moved (csrc/nearest.cu) against nearest_moved_plain on the
+    card: index, d^2 and matched rows bit for bit, then event ms (CUDA
+    events over BENCH_ITERS calls; 3 for the plain version), the device ms
+    a call over SWEEP_PROFILE_CALLS profiled calls of each (None where the
+    profiler recorded no sweep kernel), the launches, and the bound as
+    portbench/metrics/icp_roofline.py counts it (6 float32 operations a
+    valid frame row x valid destination row; the rows read once, index and
+    d^2 written once)."""
+    from pointcloudhookup_tpu_torch.ops.kernels import nearest
+
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    got = nearest.nearest_moved(*args)
+    ref = nearest.nearest_moved_plain(*args)
+    for name, g, r in zip(("idx", "d2", "matched"), got, ref):
+        if g.dtype.is_floating_point:
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        if not torch.equal(g, r):
+            raise AssertionError(f"(b) nearest sweep {label}: {name} differs from the plain "
+                                 f"version in {int((g != r).sum())} places")
+    before = nearest.launches
+    ms_k, _ = timed(lambda: nearest.nearest_moved(*args), BENCH_ITERS)
+    launched = nearest.launches - before
+    ms_p, _ = timed(lambda: nearest.nearest_moved_plain(*args), 3)
+    calls = SWEEP_PROFILE_CALLS
+    prof_k = profile_iteration(lambda: [nearest.nearest_moved(*args) for _ in range(calls)], top=4)
+    prof_p = profile_iteration(lambda: [nearest.nearest_moved_plain(*args) for _ in range(calls)])
+    seen = any("sweep_kernel" in k for k, _ in prof_k["top"])
+    dev_k = prof_k["device_ms"] / calls if seen else None
+    dev_p = prof_p["device_ms"] / calls if prof_p["device_ms"] else None
+    n_valid = arrays[1].sum(axis=1).astype(np.float64)
+    m_valid = arrays[3].sum(axis=1).astype(np.float64)
+    ops = 6.0 * float((n_valid * m_valid).sum())
+    nbytes = 12.0 * float(n_valid.sum() + m_valid.sum()) + 8.0 * float(n_valid.sum())
+    bound_ms = max(ops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    b, n, m = arrays[0].shape[0], arrays[0].shape[1], arrays[2].shape[1]
+    print(f"(b) nearest sweep {label} [{b}, {n}, {m}] (valid pairs {ops / 6:.4g}): kernel "
+          f"{ms_k:.4f} ms (event) / {dev_k} ms (device), bound {bound_ms:.4f} ms "
+          f"(operations), {launched} launches for {BENCH_ITERS + 1} calls; plain "
+          f"{ms_p:.3f} ms (event) / {dev_p} ms (device); bit-equal; kernel device ms by "
+          f"kernel over {calls} calls: " + ", ".join(f"{k[:40]} {v:.4f}" for k, v in prof_k["top"]))
+    if launched != BENCH_ITERS + 1:
+        raise AssertionError(f"(b) nearest sweep {label}: {launched} launches")
+    return dict(shape=[b, n, m], pairs=ops / 6, kernel_ms=ms_k, kernel_device_ms=dev_k,
+                bound_ms=bound_ms, plain_ms=ms_p, plain_device_ms=dev_p, launches=launched)
+
+
 def gim_scenario(tmp):
     """benchmarks/config4_icp.py::gim_scenario on the port: three towers
     with a one-sided conductor stub each (seed 11), and a GIM of the
@@ -957,13 +1042,19 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
           their boxes (within half the smaller width), the card within 1 mm
           of the CPU
           on ICP_CPU_TOWERS pairs and the farthest one, the saved GIM
-          reopens, no kernel launched by the ICP; wall ms of extract, ICP
-          and save, the ICP's device-busy ms;
+          reopens, every sweep one launch of the nearest-sweep kernel
+          (icp.nearest_kernel equals icp.sweeps) and none of the ten
+          kernels; wall ms of extract, ICP and save, the ICP's device-busy
+          ms;
       (b) batched_icp at config 4's shape (50 towers, 2,048 points, 20
           iterations): R within 0.05 and t within 0.2 m of the planted
           motions, R within 1e-4 and t within 1e-3 m of the CPU's on the
           first ICP_CPU_TOWERS towers; ms per call, tower-ICP-iterations
-          per second, host syncs per ICP iteration;
+          per second, host syncs per ICP iteration; nearest_moved at that
+          shape and at icp50.correct's (50 frames of 280 rows, member
+          clouds of 12,000-14,000 rows): index, d^2 and matched rows
+          bit-equal to nearest_moved_plain, event and device ms of each,
+          the kernel's bound and launches;
       (c) ``register`` on the 4M tile: 24 transforms printed, the ICP's
           peak allocated device memory within REGISTER_PEAK_BOUND;
       (d) stream_extract with config 5's parameters (method grid, 8,192
@@ -997,6 +1088,7 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
     from pointcloudhookup_tpu_torch.models.towers import extract_step, towers_from_stats
     from pointcloudhookup_tpu_torch.ops import registration
     from pointcloudhookup_tpu_torch.ops.frontend_fused import fused_extract_step
+    from pointcloudhookup_tpu_torch.ops.kernels import nearest
     from pointcloudhookup_tpu_torch.utils import trace
     from pointcloudhookup_tpu_torch.utils.validate import quality_dedup
 
@@ -1039,8 +1131,10 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
 
         def count_before():
             icp_counts.append(counts_now())
+            sweeps.append((trace.counter("icp.sweeps"), trace.counter("icp.nearest_kernel")))
 
-        with no_plain_versions(kernel_modules), \
+        sweeps = []
+        with no_plain_versions(kernel_modules + [nearest]), \
                 stage_walls(pipeline, ("extract_from_points", "save_gim"), dev, walls,
                             KERNELS["segscan"][2]), \
                 stage_walls(refine, ("refine_tower_centers",), dev, walls,
@@ -1051,8 +1145,10 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
                                  "--device", str(dev), "--output-folder",
                                  os.path.join(tmp, "oa")])
             icp_counts.append(counts_now())
+            sweeps.append((trace.counter("icp.sweeps"), trace.counter("icp.nearest_kernel")))
         read_counts(EXACT_PATH, "(a) correct --icp")
         icp_launches = {k: icp_counts[1][k] - icp_counts[0][k] for k in icp_counts[0]}
+        icp_sweeps, nearest_launches = (b - a for a, b in zip(*sweeps))
         args, kwargs, ref_out = refined[0]
         towers_a, clouds, pair_idx = args[0], args[1], args[2]
         off = {pi: float(np.linalg.norm(r["center"][:2] - clouds[pi].mean(axis=0)[:2]))
@@ -1081,22 +1177,24 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
               f"centres from the member centroid (xy): worst {shift_xy:.3f} m, "
               f"{len(off) - len(far)} within {TOWER_TOL_M} m, beyond it (m, box width ey) "
               f"{far}, only towers of {ICP_WIDENED} and within ey / 2: {inside}; card vs CPU on pairs {sub}: centres "
-              f"within {vs_cpu:.3g} m; kernel launches in the "
-              f"ICP {icp_launches}; saved GIM reopens with {len(reopened)} towers; ICP, one "
+              f"within {vs_cpu:.3g} m; {icp_sweeps} sweeps, {nearest_launches} nearest-sweep "
+              f"kernel launches, launches of the ten in the ICP {icp_launches}; saved GIM reopens with {len(reopened)} towers; ICP, one "
               f"profiled call: wall {prof_icp['wall_ms']:.1f} ms, device busy "
               f"{prof_icp['device_ms']} ms, idle share {prof_icp['idle_share']}; device ms by "
               "kernel: " + ", ".join(f"{k[:50]} {v:.3f}" for k, v in prof_icp["top"]))
         if (f"{len(gts)} pairs matched" not in out or len(rmse_lines) != len(gts)
                 or len(ref_out) != len(gts) or not inside or vs_cpu > 1e-3
                 or len(reopened) != len(gts) or "saved" not in out.splitlines()
-                or any(icp_launches.values())):
+                or any(icp_launches.values()) or not 0 < icp_sweeps == nearest_launches):
             raise AssertionError(f"(a) correct --icp: {len(rmse_lines)} rmse lines, "
                                  f"{len(ref_out)} refined, worst {shift_xy:.2f} m, inside "
                                  f"{inside}, vs CPU {vs_cpu}, {len(reopened)} reopened, "
-                                 f"launches {icp_launches}")
+                                 f"launches {icp_launches}, {icp_sweeps} sweeps, "
+                                 f"{nearest_launches} nearest launches")
         results["a"] = dict(wall_ms=ms_a, stage_ms=stage, refined=len(ref_out),
                             worst_centroid_m=shift_xy, beyond_tol=far, vs_cpu_m=vs_cpu,
-                            icp_launches=icp_launches,
+                            icp_launches=icp_launches, icp_sweeps=icp_sweeps,
+                            nearest_launches=nearest_launches,
                             icp_profile={k: prof_icp[k] for k in ("wall_ms", "device_ms",
                                                                    "idle_share")},
                             template_points=int(len(refine.tower_frame_template(30.0, 10.0))),
@@ -1156,7 +1254,11 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
     results["b"] = dict(ms=ms_b, tower_icp_iters_per_s=rate, r_err=r_err, t_err=t_err,
                         r_vs_cpu=r_cpu, t_vs_cpu=t_cpu, syncs_1_2=syncs,
                         syncs_per_iteration=syncs[1] - syncs[0],
-                        device_ms=prof_b["device_ms"], idle_share=prof_b["idle_share"])
+                        device_ms=prof_b["device_ms"], idle_share=prof_b["idle_share"],
+                        nearest={label: nearest_sweep_case(label, arrays, dev)
+                                 for label, arrays in (
+                                     ("config4", config4_sweep(src, mask, dst)),
+                                     ("icp50", icp50_sweep()))})
 
     # ---- (d) stream_extract at config 5's scale and parameters
     p5 = ExtractParams(cluster=ClusterParams(method="grid", max_cells=8192,

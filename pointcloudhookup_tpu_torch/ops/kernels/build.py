@@ -74,6 +74,10 @@ _SIGNATURES = {
     "pch_winsort": (_I32, [_P, _P, _P, _I64, _I32, _P, _P]),
     "pch_block_sort": (_I32, [_P, _P, _P, _I64, _I32, _P]),
     "pch_merge_rounds": (_I32, [_P, _P, _P, _P, _I64, _I32, _P]),
+    "pch_nearest_sweep": (
+        _I32, [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _I32,
+               _P, _P, _P, _P, _P]
+    ),
 }
 
 _lock = threading.Lock()

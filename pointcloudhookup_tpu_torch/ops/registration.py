@@ -21,15 +21,20 @@ form rounds d^2 by a few ulp of d^2 itself: about 0.3 % of towers part,
 by 2-106 mm (90 sections), moved by the float32 rounding of the moved rows
 alone.  ``tests/test_torch_registration.py::test_nearest_matches_jax``
 holds the index to the JAX module's and d^2 to the exact value.
-The search runs in tiles of source rows, so no [B, rows, M] tensor holds
-more than ``NEAREST_TILE_ELEMS`` elements; each row's d^2 and argmin are
-those of the untiled form.  The 3x3 solve is ``torch.linalg.svd`` on the
-tensors' device.
+A sweep (the frame rows moved by R and t, then each one's nearest valid
+destination row) is ``ops/kernels/nearest.py::nearest_moved``: on the card
+the hand-written kernel ``csrc/nearest.cu``, which builds no [B, rows, M]
+tensor and gives ``_moved`` and ``_nearest``'s index and d^2 bit for bit;
+on the CPU those two functions.  ``_nearest`` runs in tiles of source
+rows, so no [B, rows, M] tensor holds more than ``NEAREST_TILE_ELEMS``
+elements; each row's d^2 and argmin are those of the untiled form.  The
+3x3 solve is ``torch.linalg.svd`` on the tensors' device.
 
 Spans and counters (``utils/trace.py``): ``register_tower_pairs`` opens
 ``icp.pack`` round its padding, and ``solve_pairs`` ``icp.upload``,
 ``icp.solve`` and ``icp.fetch``; ``batched_icp`` counts ``icp.sweeps``, one
-a nearest-neighbour sweep.
+a nearest-neighbour sweep, and the kernel's wrapper ``icp.nearest_kernel``,
+one a launch.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pointcloudhookup_tpu_torch.ops.kernels import nearest
 from pointcloudhookup_tpu_torch.ops.morton import fma_f32
 from pointcloudhookup_tpu_torch.state import to_numpy
 from pointcloudhookup_tpu_torch.utils import trace
@@ -77,6 +83,13 @@ def kabsch(src, dst, weights):
     r = (v * flip[..., None, :]) @ ut
     t = mu_d - (r * mu_s[..., None, :]).sum(dim=-1)
     return r, t
+
+
+def _moved(src, r, t):
+    """src @ R^T (Eigen's fused dot), then + t: src float32[B, N, 3], r
+    float32[B, 3, 3], t float32[B, 3]."""
+    s = [c[..., None] for c in _cols(src)]  # [B, N, 1] each
+    return _dot3(s, [r[:, None, :, j] for j in range(3)]) + t[:, None, :]
 
 
 def _nearest(src, src_mask, dst, dst_mask):
@@ -132,20 +145,14 @@ def batched_icp(src, src_mask, dst, dst_mask, iters: int = 20,
     batch in one call."""
     b = src.shape[0]
     lim2 = torch.tensor(max_corr_dist, dtype=torch.float32, device=src.device) ** 2
-    r = torch.eye(3, dtype=src.dtype, device=src.device).expand(b, 3, 3)
+    r = torch.eye(3, dtype=src.dtype, device=src.device).expand(b, 3, 3).contiguous()
     t = torch.zeros((b, 3), dtype=src.dtype, device=src.device)
-
-    s = [c[..., None] for c in _cols(src)]  # [B, N, 1] each
-
-    def moved():  # src @ R^T (Eigen's fused dot), then + t
-        return _dot3(s, [r[:, None, :, j] for j in range(3)]) + t[:, None, :]
-
     for _ in range(iters):
-        idx, d2 = _nearest(moved(), src_mask, dst, dst_mask)
+        _, d2, matched = nearest.nearest_moved(src, src_mask, dst, dst_mask, r, t)
         trace.count("icp.sweeps")
         w = (src_mask & (d2 <= lim2)).to(torch.float32)
-        r, t = kabsch(src, _gather_rows(dst, idx), w + 1e-9)
-    _, d2 = _nearest(moved(), src_mask, dst, dst_mask)
+        r, t = kabsch(src, matched, w + 1e-9)
+    _, d2, _ = nearest.nearest_moved(src, src_mask, dst, dst_mask, r, t)
     trace.count("icp.sweeps")
     n_valid = torch.clamp(src_mask.to(torch.float32).sum(dim=-1), min=1.0)
     inl = (src_mask & (d2 <= lim2)).to(torch.float32)

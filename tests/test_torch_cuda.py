@@ -1407,6 +1407,154 @@ def test_batched_icp_cuda_matches_cpu(cuda):
                                    atol=1.0 / 64)
 
 
+# name: (B, N, M, what the masks and rows hold).  Frame rows are the
+# 280-row tower frame where N is 280, tower-like clouds otherwise.
+SWEEP_CASES = {
+    "icp50": (50, 280, 14_000, "ragged"),      # the icp50.correct cell's batch
+    "config4": (50, 2048, 2048, "full"),       # BASELINE config 4
+    "register": (24, 14_000, 600, "ragged"),   # member clouds onto GIM pylons: N >> M
+    "b1-n1-m1": (1, 1, 1, "full"),
+    "m-not-chunk": (3, 100, 1537, "full"),     # M = 3 x 512 + 1 destination rows
+    "m-chunk-plus-one": (2, 33, 513, "ragged"),
+    "holes": (6, 300, 2000, "holes"),
+    "ties": (4, 200, 3000, "ties"),
+    "nan": (4, 150, 1200, "nan"),
+}
+
+
+def sweep_inputs(case, seed=0):
+    """(src, src_mask, dst, dst_mask, r, t) numpy arrays of SWEEP_CASES[case].
+    ragged: prefix masks of 85-100 % of the rows; holes: masks with holes,
+    a tower with every frame row masked, one with every destination masked
+    and one whose destinations are all +inf away (|e|^2 overflows); ties:
+    copies of a frame row and rows 1/64 away from one along each axis, at
+    scattered indices (the identity motion keeps them exact); nan: NaN and
+    inf coordinates in frame rows, in valid and in masked destination
+    rows."""
+    from pointcloudhookup_tpu_torch.models.refine import tower_frame_template
+
+    b, n, m, kind = SWEEP_CASES[case]
+    rng = np.random.default_rng(seed)
+    if n == 280:
+        src = np.stack([tower_frame_template(rng.uniform(30, 45), rng.uniform(8, 14),
+                                             yaw=rng.uniform(-0.3, 0.3)) for _ in range(b)])
+    else:
+        src = np.stack([_tower_cloud(rng, n) - [0, 0, 17.5] for _ in range(b)])
+    dst = np.stack([_tower_cloud(rng, m) - [0, 0, 17.5] for _ in range(b)]).astype(np.float32)
+    src = src.astype(np.float32)
+    sm, dm = np.ones((b, n), bool), np.ones((b, m), bool)
+    if kind == "ragged":
+        for i in range(b):
+            sm[i, int(rng.integers(int(0.85 * n), n + 1)):] = False
+            dm[i, max(1, int(rng.integers(int(0.85 * m), m + 1))):] = False
+    elif kind == "holes":
+        sm = rng.random((b, n)) < 0.8
+        dm = rng.random((b, m)) < 0.5
+        sm[1] = False
+        dm[2] = False
+        dst[3] = np.float32(1e30) * rng.choice([-1.0, 1.0], (m, 3)).astype(np.float32)
+    elif kind == "ties":
+        for i in range(b):
+            rows = rng.choice(n, 20, replace=False)
+            src[i, rows] = np.round(src[i, rows] * 4) / 4  # so row +- 1/64 is exact
+            for k, row in enumerate(rows):
+                at = rng.choice(m, 4, replace=False)
+                for q, j in enumerate(at):
+                    off = np.zeros(3, np.float32)
+                    if k % 2:  # equidistant: 1/64 along a signed axis
+                        off[q % 3] = 1 / 64 if q < 3 else -1 / 64
+                    dst[i, j] = src[i, row] + off
+    elif kind == "nan":
+        dm[:, ::7] = False
+        src[0, 5, 1], src[0, 9, 0] = np.nan, np.inf  # frame rows only
+        dst[1, 302, 2], dst[1, 100, 0] = np.nan, -np.inf  # valid destinations
+        dst[2, 350, 1], src[2, 3, 2], dst[2, 500, 2] = np.nan, np.inf, np.inf  # 350 masked
+        src[3, 7, 0], dst[3, 11, 0] = -np.inf, -np.inf
+    ang = rng.uniform(-0.1, 0.1, b)
+    r = np.stack([[[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]]
+                  for a in ang]).astype(np.float32)
+    r += rng.normal(0, 1e-3, r.shape).astype(np.float32)
+    tv = rng.uniform(-0.5, 0.5, (b, 3)).astype(np.float32)
+    if kind == "ties":
+        r[:] = np.eye(3, dtype=np.float32)
+        tv[:] = 0.0
+    return src, sm, dst, dm, r, tv
+
+
+def same_bits(a, b):
+    """Equal shapes, dtypes and bits (NaN payloads included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SWEEP_CASES), ids=list(SWEEP_CASES))
+def test_nearest_kernel_bit_equal_to_plain(cuda, case):
+    """csrc/nearest.cu against ops/registration.py's _moved and _nearest on
+    the card: every index, d^2 and matched row bit for bit."""
+    from pointcloudhookup_tpu_torch.ops.kernels import nearest
+
+    arrays = sweep_inputs(case)
+    args = [t(a, cuda) for a in arrays]
+    before = nearest.launches
+    got = nearest.nearest_moved(*args)
+    ref = nearest.nearest_moved_plain(*args)
+    torch.cuda.synchronize()
+    assert nearest.launches == before + 1
+    for name, g, r in zip(("idx", "d2", "matched"), got, ref):
+        assert same_bits(g, r), (case, name, int((g != r).sum()))
+    if case == "holes":  # every candidate masked or +inf away: index 0, d^2 +inf
+        assert (got[0][2:4] == 0).all() and torch.isinf(got[1][2:4]).all()
+        assert torch.isinf(got[1][1]).all()
+    if case == "nan":
+        assert torch.isnan(got[1]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in SWEEP_CASES if c != "nan"],
+                         ids=[c for c in SWEEP_CASES if c != "nan"])
+def test_batched_icp_kernel_bit_equal_to_plain(cuda, case, monkeypatch):
+    """batched_icp on the card with the kernel and with the plain sweep
+    (nearest_moved_plain in its place): R, t, rmse and inlier_frac bit for
+    bit, so the whole ICP is the plain version's."""
+    from pointcloudhookup_tpu_torch.ops import registration as reg
+    from pointcloudhookup_tpu_torch.ops.kernels import nearest
+
+    src, sm, dst, dm, _, _ = sweep_inputs(case, seed=1)
+    args = [t(a, cuda) for a in (src, sm, dst, dm)]
+    got = reg.batched_icp(*args, iters=8, max_corr_dist=2.0)
+    monkeypatch.setattr(nearest, "nearest_moved", nearest.nearest_moved_plain)
+    ref = reg.batched_icp(*args, iters=8, max_corr_dist=2.0)
+    for key in ("R", "t", "rmse", "inlier_frac"):
+        assert same_bits(got[key], ref[key]), (case, key)
+
+
+@pytest.mark.cuda
+def test_nearest_kernel_makes_no_host_sync_and_refuses(cuda):
+    """The wrapper launches with no device-to-host read, and raises on
+    inputs the kernel does not take."""
+    from pointcloudhookup_tpu_torch.ops.kernels import nearest
+
+    args = [t(a, cuda) for a in sweep_inputs("m-chunk-plus-one")]
+    ref = nearest.nearest_moved(*args)  # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = nearest.nearest_moved(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(same_bits(g, r) for g, r in zip(got, ref))
+    src, sm, dst, dm, r, tv = args
+    for bad in ((src.double(), sm, dst, dm, r, tv), (src, sm, dst.cpu(), dm, r, tv),
+                (src, sm, dst, dm, r.mT, tv), (src, sm.to(torch.uint8), dst, dm, r, tv),
+                (src, sm, dst[:, :0], dm[:, :0], r, tv)):
+        with pytest.raises(ValueError):
+            nearest.nearest_moved(*bad)
+
+
 def _stub_corridor(seed=11):
     """Three towers with a one-sided conductor stub each (config 4's
     gim_scenario corridor), in a local frame."""
@@ -1445,6 +1593,28 @@ def test_refine_tower_centers_cuda_matches_cpu(cuda):
     assert len(got) == len(ref) == len(centers)
     for i in ref:
         np.testing.assert_allclose(got[i]["center"], ref[i]["center"], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_refine_launches_nearest_kernel_each_sweep(cuda):
+    """One refine_tower_centers call on the card (3 stages of 10 iterations
+    and a final sweep): icp.nearest_kernel counts as many launches as
+    icp.sweeps counts sweeps, 33."""
+    from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams, GroundParams
+    from pointcloudhookup_tpu_torch.models import pipeline
+    from pointcloudhookup_tpu_torch.models.refine import refine_tower_centers
+
+    pts, _ = _stub_corridor()
+    params = ExtractParams(ground=GroundParams(min_points_after=100),
+                           cluster=ClusterParams(eps=5.0, min_points=30),
+                           max_clusters=32, obb_angles=128)
+    towers, stats, _ = pipeline.extract_from_points(pts, params, capacity=8192, device="cpu")
+    lab = stats["labels"][: len(pts)]
+    clouds = [pts[lab == tw.label] for tw in towers]
+    sweeps, launched = trace.counter("icp.sweeps"), trace.counter("icp.nearest_kernel")
+    refine_tower_centers(towers, clouds, list(range(len(towers))), device=cuda)
+    sweeps = trace.counter("icp.sweeps") - sweeps
+    assert sweeps == 33 and trace.counter("icp.nearest_kernel") - launched == sweeps
 
 
 @pytest.mark.cuda

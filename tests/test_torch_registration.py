@@ -18,6 +18,11 @@ port against the JAX package on the same numpy inputs:
 * ``refine_tower_centers`` and ``correct(icp=True)`` on config 4's
   ``gim_scenario`` corridor: the same pairs, refined centres within 1e-3 m;
 * the tiled ``_nearest`` equals the untiled one exactly;
+* the plain sweep's rules that the card's kernel (``csrc/nearest.cu``) is
+  held to: the first index on exact ties, index 0 and d^2 +inf where every
+  destination is masked or +inf away, the first NaN, masks that are not
+  prefixes, ``_moved``'s fused order; ``nearest_moved`` takes the plain
+  path for CPU tensors, and ``plan`` splits the work by B, N and M;
 * ``refine_tower_centers`` on the member clouds of the 4M bench tile's
   towers 2 and 10 (``tests/fixtures/torch_icp_widened.npz``): the JAX
   refinement's centres, and the card's, within 1e-3 m.
@@ -269,6 +274,190 @@ def test_nearest_tiled_equals_untiled(monkeypatch):
         monkeypatch.setattr(reg, "NEAREST_TILE_ELEMS", rows * 2 * 400)
         ti, td = reg._nearest(*args)
         assert torch.equal(ti, idx) and torch.equal(td, d2)
+
+
+def _sweep(src, sm, dst, dm, r=None, t=None):
+    """nearest_moved on CPU tensors (the identity motion by default)."""
+    from pointcloudhookup_tpu_torch.ops.kernels import nearest
+
+    b = src.shape[0]
+    r = np.broadcast_to(np.eye(3, dtype=np.float32), (b, 3, 3)) if r is None else r
+    t = np.zeros((b, 3), np.float32) if t is None else t
+    return nearest.nearest_moved(*_t(src, sm, dst, dm, r, t))
+
+
+def _fma32(a, b, c):
+    """float32 a * b + c rounded once (the float64 form of fma_f32)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _brute_nearest(a, sm, dst, dm):
+    """numpy's twin of _nearest on moved rows a: d^2 in the same order,
+    np.argmin's first index (and first NaN), masked rows +inf."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        e = [(a[:, :, None, k] - dst[:, None, :, k]).astype(np.float32) for k in range(3)]
+        d2 = _fma32(e[2], e[2], _fma32(e[1], e[1], e[0] * e[0]))
+    d2 = np.where(dm[:, None, :], d2, np.float32(np.inf))
+    idx = np.argmin(d2, axis=-1)
+    best = np.take_along_axis(d2, idx[..., None], axis=-1)[..., 0]
+    return idx, np.where(sm, best, np.float32(np.inf))
+
+
+@pytest.mark.parametrize("kind", ["duplicated", "equidistant"])
+def test_nearest_first_index_on_exact_ties(kind):
+    """Rows of equal d^2 (copies of one row, or rows one unit away on each
+    axis) at scattered indices: the smallest index wins, in ``_nearest``
+    and in the sweep."""
+    m = 1500
+    rng = np.random.default_rng(5)
+    dst = rng.uniform(20, 30, (1, m, 3)).astype(np.float32)
+    src = np.zeros((1, 4, 3), np.float32)
+    src[0, 1] = [1.5, -2.0, 0.25]
+    tied = [1207, 403, 911, 64, 1499]
+    for k, j in enumerate(tied):
+        off = np.zeros(3, np.float32)
+        if kind == "equidistant":
+            off[k % 3] = 1.0 if k < 3 else -1.0
+        dst[0, j] = src[0, 1] + off
+    sm, dm = np.ones((1, 4), bool), np.ones((1, m), bool)
+    idx, d2, matched = _sweep(src, sm, dst, dm)
+    assert int(idx[0, 1]) == min(tied)
+    assert float(d2[0, 1]) == (0.0 if kind == "duplicated" else 1.0)
+    np.testing.assert_array_equal(matched[0, 1].numpy(), dst[0, min(tied)])
+    ref_i, ref_d = _brute_nearest(src, sm, dst, dm)
+    np.testing.assert_array_equal(idx.numpy(), ref_i)
+    np.testing.assert_array_equal(d2.numpy(), ref_d)
+
+
+@pytest.mark.parametrize("how", ["masked", "infinite"])
+def test_nearest_all_candidates_infinite(how):
+    """A tower whose every destination is masked (or +inf away: |e|^2
+    overflows float32) gives index 0 and d^2 +inf, as torch.argmin; a
+    masked frame row reports +inf whatever its nearest row."""
+    src = np.array([[[0.0, 0.0, 0.0], [1.0, 2.0, 3.0], [5.0, 5.0, 5.0]],
+                    [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [2.0, 2.0, 2.0]]], np.float32)
+    dst = np.array([[[1.0, 0.0, 0.0], [0.0, 2.0, 3.0], [4.0, 4.0, 4.0], [9.0, 9.0, 9.0]],
+                    [[1e30, 0.0, 0.0], [0.0, -1e30, 0.0], [0.0, 0.0, 3e38], [1e20, 1e20, 1e20]]],
+                   np.float32)
+    sm = np.array([[True, False, True], [True, True, True]])
+    dm = np.ones((2, 4), bool)
+    if how == "masked":
+        dm[1] = False
+    idx, d2, _ = _sweep(src, sm, dst, dm)
+    np.testing.assert_array_equal(idx[1].numpy(), [0, 0, 0])
+    assert np.isposinf(d2[1].numpy()).all()
+    np.testing.assert_array_equal(idx[0].numpy(), [0, 1, 2])
+    np.testing.assert_array_equal(d2[0].numpy(), [1.0, np.inf, 3.0])
+
+
+def test_nearest_nan_rule():
+    """A NaN d^2 wins over every number and the first NaN is kept, as
+    torch.argmin keeps it; a masked destination holding a NaN stays +inf;
+    a frame row with a NaN coordinate takes the first valid row.  On the
+    card's kernel the moved row (inf, 0, 0) goes the same way."""
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    src = np.array([[[0.0, 0.0, 0.0], [nan, 0.0, 0.0], [inf, 0.0, 0.0], [3.0, 3.0, 3.0]]],
+                   np.float32)
+    dst = np.array([[[0.0, 0.0, 0.0], [0.0, nan, 1.0], [0.0, 0.0, 0.5], [inf, 0.0, 0.0],
+                     [2.0, nan, 0.0], [3.0, 3.0, 3.0]]], np.float32)
+    sm = np.array([[True, True, True, False]])
+    dm = np.array([[False, True, True, True, True, True]])
+    idx, d2, _ = _sweep(src, sm, dst, dm)
+    # every row meets the NaN of destination row 1 first; frame rows 1 and
+    # 2 are NaN themselves once moved (inf * 0 is NaN in the fused dot)
+    np.testing.assert_array_equal(idx.numpy(), [[1, 1, 1, 1]])
+    assert np.isnan(d2[0, :3].numpy()).all() and np.isposinf(float(d2[0, 3]))
+    dm[0, 1] = dm[0, 4] = False  # the NaN rows masked: numbers only
+    idx, d2, _ = _sweep(src, sm, dst, dm)
+    np.testing.assert_array_equal(idx.numpy(), [[2, 2, 2, 5]])
+    np.testing.assert_array_equal(d2[0, [0, 3]].numpy(), [0.25, inf])
+    assert np.isnan(float(d2[0, 1])) and np.isnan(float(d2[0, 2]))
+    eye = np.eye(3, dtype=np.float32)[None]
+    moved = reg._moved(*_t(src, eye, np.zeros((1, 3), np.float32))).numpy()
+    ref_i, ref_d = _brute_nearest(moved, sm, dst, dm)
+    np.testing.assert_array_equal(idx.numpy(), ref_i)
+    np.testing.assert_array_equal(d2.numpy(), ref_d)
+
+
+def test_nearest_non_prefix_masks():
+    """Masks with holes on both sides (not pad_pairs' prefixes) and a
+    moved frame: the sweep equals numpy's twin of it."""
+    rng = np.random.default_rng(6)
+    b, n, m = 3, 70, 333
+    src = rng.normal(0, 5, (b, n, 3)).astype(np.float32)
+    dst = rng.normal(0, 5, (b, m, 3)).astype(np.float32)
+    sm = rng.random((b, n)) < 0.7
+    dm = rng.random((b, m)) < 0.4
+    dm[2, :] = False
+    dm[2, 200] = True
+    r = np.stack([_rot_z(a) for a in (0.1, -0.3, 0.7)]).astype(np.float32)
+    t = rng.normal(0, 1, (b, 3)).astype(np.float32)
+    idx, d2, matched = _sweep(src, sm, dst, dm, r, t)
+    moved = reg._moved(*_t(src, r, t)).numpy()
+    ref_i, ref_d = _brute_nearest(moved, sm, dst, dm)
+    np.testing.assert_array_equal(idx.numpy(), ref_i)
+    np.testing.assert_array_equal(d2.numpy(), ref_d)
+    assert (idx[2].numpy() == 200).all()
+    np.testing.assert_array_equal(matched.numpy(), np.take_along_axis(dst, ref_i[..., None], 1))
+
+
+def test_moved_fused_order():
+    """_moved is fma(s2, r[i][2], fma(s1, r[i][1], s0 r[i][0])) + t[i],
+    each step rounded to float32: the _dot3 order the card's kernel
+    reproduces."""
+    rng = np.random.default_rng(7)
+    src = (rng.normal(0, 30, (4, 257, 3))).astype(np.float32)
+    r = np.stack([_rot_z(a) @ _rot_z(0.2).T for a in rng.uniform(-1, 1, 4)]).astype(np.float32)
+    r[:, 2, :] += rng.normal(0, 1e-3, (4, 3)).astype(np.float32)
+    t = rng.normal(0, 10, (4, 3)).astype(np.float32)
+    got = reg._moved(*_t(src, r, t)).numpy()
+    s = [src[..., k][..., None] for k in range(3)]
+    rc = [r[:, None, :, k] for k in range(3)]
+    want = (_fma32(s[2], rc[2], _fma32(s[1], rc[1], s[0] * rc[0])) + t[:, None, :]).astype(
+        np.float32)
+    np.testing.assert_array_equal(got, want)
+    cols = [torch.from_numpy(c) for c in s]
+    dot = reg._dot3(cols, [torch.from_numpy(np.ascontiguousarray(c)) for c in rc])
+    np.testing.assert_array_equal(got, (dot + torch.from_numpy(t)[:, None, :]).numpy())
+
+
+def test_nearest_moved_cpu_takes_plain_path():
+    """CPU tensors run the plain version: no launch, no count, and the
+    results of _moved, _nearest and _gather_rows."""
+    from pointcloudhookup_tpu_torch.ops.kernels import nearest
+    from pointcloudhookup_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(8)
+    src, sm, dst, dm = _padded_pairs(rng, [40, 9], [30, 64], 40, 64)
+    r = np.stack([_rot_z(0.05), _rot_z(-0.4)]).astype(np.float32)
+    t = np.array([[0.5, 0.0, -1.0], [2.0, 1.0, 0.0]], np.float32)
+    before, counted = nearest.launches, trace.counter("icp.nearest_kernel")
+    idx, d2, matched = nearest.nearest_moved(*_t(src, sm, dst, dm, r, t))
+    assert nearest.launches == before and trace.counter("icp.nearest_kernel") == counted
+    ref_i, ref_d = reg._nearest(reg._moved(*_t(src, r, t)), *_t(sm, dst, dm))
+    assert torch.equal(idx, ref_i) and torch.equal(d2, ref_d)
+    assert torch.equal(matched, reg._gather_rows(torch.from_numpy(dst), ref_i))
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((50, 280, 14_000), (3, 3, 2, 15)),   # icp50.correct: 3 tiles of 96 rows a tower
+    ((50, 2048, 2048), (4, 8, 1, 6)),     # config 4's batch
+    ((24, 14_000, 600), (3, 8, 1, 2)),    # register: member clouds onto GIM pylons
+    ((1, 1, 1), (2, 1, 8, 1)),
+    ((3, 70, 333), (3, 1, 8, 1)),
+])
+def test_nearest_plan_follows_shape(shape, want):
+    """The kernel's split on a 132-SM H100, from B, N and M alone: the
+    fewest padded frame rows, up to eight warps a block, destination
+    ranges until 32 warps an SM, each warp keeping 64 destination rows."""
+    from pointcloudhookup_tpu_torch.ops.kernels import nearest
+
+    b, n, m = shape
+    rows, wt, wm, split = nearest.plan(b, n, m, 132)
+    assert (rows, wt, wm, split) == want
+    tiles = -(-n // (32 * rows))
+    assert wt * wm <= 8 and wt <= tiles and split >= 1
+    assert split <= max(1, -(-m // (wm * 64)))  # each warp keeps 64 destination rows
 
 
 # an exact fit's rmse is the root of the rounding of |a|^2 + |b|^2 - 2 a.b
