@@ -1,4 +1,5 @@
-"""Chip smoke test of the PyTorch + CUDA port (pointcloudhookup_tpu_torch).
+"""Chip smoke test of the PyTorch + CUDA port (pointcloudhookup_tpu_torch):
+the card's correctness gate.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -15,23 +16,22 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      centre, and every kernel of the path launched;
   2. checks that a small tile extracts identically on the GPU and through
      the plain PyTorch versions on the CPU (which the CPU test suite holds
-     against the JAX reference);
+     against the JAX reference), and that fma_f32 on the card is one
+     rounding;
   4. the fast path through its user entry point
      ``extract_from_points_resolving(pts, fast=True, device="cuda")``:
      24/24 towers, each generated tower within 2 m (xy) of an accepted
      tower's centroid, every kernel of the path launched;
   5. bench.py's configuration (fused front-end + accumulator OBB +
      filters; 4,096 cells, density floor 3, pre-cut /6 settled toward /4
-     on overflow): 24/24 accepted, no overflow, ms per iteration by CUDA
-     events; once more without the pre-cut, which packs the cell table
-     with compact_indices;
+     on overflow): 24/24 accepted, no overflow; once more without the
+     pre-cut, which packs the cell table with compact_indices;
   7. the fused front-end's other sort modes in bench.py's configuration
      without the pre-cut (the reference pre-cuts only in sort_mode
      "full"): "cell" with the tile's tight cell_sort_plan (dupwin, depth
      16), "cell" without a plan (dupwin, depth 64), "hier" (winsort,
      W 256) and "merge" (mergesort): 24/24 accepted, cells_over 0,
-     hier_runs_over printed, ms per iteration by CUDA events beside "full"
-     without the pre-cut, and the mode's kernel launched;
+     hier_runs_over printed, the mode's kernel launched;
   6. checks that the fast path on a 131,072-row tile gives the same
      labels, keep, counts and accepted towers on the GPU as through the
      plain versions on the CPU, and tower centres within 1 mm: pre-cut
@@ -44,16 +44,15 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      tile with max_clusters halved until the top tile saturates, its
      quadrants on dbscan, 24/24 and resolved; (c) the 4M tile with
      method "grid" at a capacity with no exact plan (grid_dbscan and the
-     density-floor retry), towers, floor and cells_overflow printed; wall
-     and device-busy ms of each; (d) entry()'s batch and a 100,000-row
-     per-chunk tile on the GPU vs the plain versions on the CPU;
+     density-floor retry), towers, floor and cells_overflow printed; (d)
+     entry()'s batch and a 100,000-row per-chunk tile on the GPU vs the
+     plain versions on the CPU;
   9. the GIM workflow: (a) ``run-all`` through ``__main__.main`` with
      ``--device cuda`` on the bench tile written as a LAS at
      tm_forward(113.5, 28.2) (scale 0.01) and a synthetic GIM of its 24
      towers, with every kernel's plain version made to raise: exit 0, "24
      towers corrected", the 776-byte header kept, every BLHA rewritten within
      10 m (haversine) of its generated tower, segscan launched by compress;
-     each stage's wall ms and compress's device-busy ms and idle share;
      (b) voxel_downsample and voxel_downsample_chunked on a 131,072-row tile
      on the GPU vs the CPU: identical rows, order, keys and counts,
      centroids within the f32 summation bound; (c) ``reproject`` of (a)'s
@@ -63,17 +62,17 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      refined pairs inside their boxes, the card within 1 mm of the CPU, the
      saved GIM reopens, one nearest-sweep kernel launch a sweep and none of
      the ten; (b) config 4's batched_icp (50 x 2,048, 20 iterations): the
-     planted motions recovered, the card vs the CPU, ms a call, host syncs
-     an iteration; the nearest-sweep kernel (csrc/nearest.cu) at config 4's
-     and icp50.correct's shapes: bit-equal to its plain version, event and
-     device ms beside its bound and the plain version's, launches; (c) ``register``: 24
-     transforms, the ICP's peak memory within its bound; (d) stream_extract
-     over 50 LAS tiles of 1,048,576 points with config 5's parameters: 24
-     towers a tile, 1,200 after the cross-tile dedup, the native reader,
-     decode / staging / host-to-device ms a tile, device busy; the device
-     bytes a point of one fused and one modular 4M step against the
-     governor's constant; (e) the card vs the CPU on streamed chunks (both
-     wires, fast and modular) and on config 4's gim_scenario;
+     planted motions recovered, the card vs the CPU, host syncs an
+     iteration; the nearest-sweep kernel (csrc/nearest.cu) at config 4's
+     and icp50.correct's shapes: bit-equal to its plain version, one
+     icp.nearest_kernel count a call, device ms beside its bound; (c)
+     ``register``: 24 transforms, the ICP's peak memory within its bound;
+     (d) stream_extract over 50 LAS tiles of 1,048,576 points with config
+     5's parameters: 24 towers a tile, 1,200 after the cross-tile dedup,
+     the native reader; the device bytes a point of one fused and one
+     modular 4M step against the governor's constant; (e) the card vs the
+     CPU on streamed chunks (both wires, fast and modular) and on config
+     4's gim_scenario;
  11. the sharded step (parallel/sharded.py, modular with grid, fast and
      exact) through parallel.launch.run_ranks on a 4,194,304-point corridor
      sorted by x into four slabs with towers on the slab edges: 4 ranks
@@ -81,59 +80,59 @@ corridor tile of bench.py (seed 7, 80 % ground, 12 % vegetation, 24 towers,
      centroids within 1 cm, exact-mode box centres too), every rank's merged
      dict rank 0's, planted towers found, no overflow, each rank's halo
      selections as the corridor gives them; 4 ranks on the CPU against the
-     card at 4 x 32,768 rows; wall, collective and device ms, halo rows,
-     member counts of 4 ranks and 1; rank 0's kernel calls of each mode go
-     to phase 3;
+     card at 4 x 32,768 rows; halo rows, member counts of 4 ranks and 1,
+     collective calls a step (the tracer's collective.* counters); rank
+     0's kernel calls of each mode go to phase 3;
  12. the viewers, the elevation report and the library functions on 9
      (a)'s files, no plain version allowed in the commands: (a) ``render
      --towers`` (24 boxes, a 1280 x 960 PNG read back with zlib, box-colour
-     pixels; render_scene on the card pixel-identical to the CPU, wall and
-     device-busy ms); (b) ``export-scene`` to .ply (500,000 + 24 x 24
-     vertices, 288 edges) and .laz (xyz to the LAS scale, RGB x 257); (c)
-     ``viz-export`` (24 boxes, each the card's towers' geometry); (d)
-     ``elevation-report`` with a save_gtx grid of a known plane (24 rows
-     within 1e-4 m of h - N) and with the empirical N; (e) random_downsample
-     to 2,000,000 rows and RANSAC (card == CPU on the same bits and
-     triples; on the 4M tile ground removed, towers kept, peak bytes), and
-     the segment rows on 8 m cell keys against segscan's plain version;
+     pixels; render_scene on the card pixel-identical to the CPU); (b)
+     ``export-scene`` to .ply (500,000 + 24 x 24 vertices, 288 edges) and
+     .laz (xyz to the LAS scale, RGB x 257); (c) ``viz-export`` (24 boxes,
+     each the card's towers' geometry); (d) ``elevation-report`` with a
+     save_gtx grid of a known plane (24 rows within 1e-4 m of h - N) and
+     with the empirical N; (e) random_downsample to 2,000,000 rows and
+     RANSAC (card == CPU on the same bits and triples; on the 4M tile
+     ground removed, towers kept, peak bytes), and the segment rows on 8 m
+     cell keys against segscan's plain version;
   3. runs each kernel and its plain PyTorch version on the same device
      tensors at the shapes the paths give it, requires agreement (integer
      outputs, pop, counts and extremes identical; OBB sums within the f32
-     summation bound), times both with CUDA events, profiles one call of the
-     kernel (device_ms: the summed device time of what that call ran, with
-     the names of its kernels) and one of its library call where there is
-     one (library_device_ms), times the host's issue of the calls
-     (host_ms), to tell device time from host time, and computes each
-     kernel's bound (the larger of its bytes over 3.35 TB/s and its float32
-     operations over 67 TFLOP/s, counted from this run's inputs: for the
-     pair kernels 9 operations for each pair within eps that the function
-     needs, counted by the plain version's walk, beside the all-pairs
-     count). Phase 3 also profiles one exact graph run (device ms by
-     kernel), runs cluster_converge at the fast path's own call, the
-     bench configuration's 4,096-row cell table, and winsort at W 2,048,
-     4,096 (the largest window one block sorts) and 32,768 (chunked
-     passes through a scratch buffer) besides W 256, with a line of
-     device, library and bound ms for each sort-mode kernel case; segscan
-     also at the fast path's own calls (the pre-cut bench run's and the
-     sort-mode tile's cell populations, the centroid-voxel sums of four
-     float32 columns, within the summation bound and bit-equal over two
-     calls), torch.cumsum of the same int32 rows for scale, and a check
-     that a segscan or compact_indices call launches one kernel; and the
-     modular path's calls of phase 8 (cluster_converge on dbscan's
-     cell-sorted rows, timed also on the same rows in input order, and on
-     the grid table; segscan and compactrows at grid_dbscan's calls,
-     segscan also with the cut rows as one segment for comparison),
-     segscan at compress's call of phase 9 (a) (f32 [N, 4], reverse),
-     every kernel call of rank 0's sharded step in each mode (phase 11),
-     and the segscan calls of phase 12 (e)'s segment rows.
+     summation bound), profiles one call of the kernel (device_ms: the
+     summed device time of what that call ran, with the names of its
+     kernels) and one of its library call where there is one
+     (library_device_ms), and computes each kernel's bound (the larger of
+     its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s,
+     counted from this run's inputs: for the pair kernels 9 operations for
+     each pair within eps that the function needs, counted by the plain
+     version's walk, beside the all-pairs count). Phase 3 also profiles one
+     exact graph run (device ms by kernel), runs cluster_converge at the
+     fast path's own call, the bench configuration's 4,096-row cell table,
+     and winsort at W 2,048, 4,096 (the largest window one block sorts) and
+     32,768 (chunked passes through a scratch buffer) besides W 256;
+     segscan also at the fast path's own calls (the pre-cut bench run's
+     and the sort-mode tile's cell populations, the centroid-voxel sums of
+     four float32 columns, within the summation bound and bit-equal over
+     two calls), and a check that a segscan or compact_indices call
+     launches one kernel; and the modular path's calls of phase 8
+     (cluster_converge on dbscan's cell-sorted rows, and the same rows in
+     input order give the same result permuted, and on the grid table;
+     segscan and compactrows at grid_dbscan's calls, segscan also with the
+     cut rows as one segment, which gives the same outputs), segscan at
+     compress's call of phase 9 (a) (f32 [N, 4], reverse), every kernel
+     call of rank 0's sharded step in each mode (phase 11), and the
+     segscan calls of phase 12 (e)'s segment rows.
 
-Launch counts are reset just before each path's run (1, 4, 5, each mode of
-7, 8 (a)-(c), 9 (a), 10 (a), a fast and a modular tile of 10 (d), in rank 0
-one sharded step of each mode of 11, and each command of 12 (a)-(c) and the
-segment rows of 12 (e)) and read just after.  Prints the card's name and power limit, one JSON line of
-per-kernel results, and as its last line {"ok": true, "device": {...}}.
-Any failure raises: the exit code is non-zero and the last line is not
-printed.  It imports nothing of JAX or of the JAX package.
+Launch counts (the tracer's counters, utils/trace.py) are read just before
+and just after each path's run (1, 4, 5, each mode of 7, 8 (a)-(c), 9 (a),
+10 (a), a fast and a modular tile of 10 (d), in rank 0 one sharded step of
+each mode of 11, and each command of 12 (a)-(c) and the segment rows of
+12 (e)).  The only times it reads are device times by kernel (phase 3 and
+10 (b)): what the paths cost end to end is the benchmark's to measure
+(portbench/, BENCHMARK.json).  Prints the card's name and power limit, one
+JSON line of per-kernel results, and as its last line {"ok": true,
+"device": {...}}.  Any failure raises: the exit code is non-zero and the
+last line is not printed.  It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -146,7 +145,6 @@ import os
 import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
@@ -157,7 +155,6 @@ TOWER_TOL_M = 2.0
 N_SMALL = 196_608  # phase 8 (a): below auto_grid_threshold, so extract() runs dbscan
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
-BENCH_ITERS = 10
 # phase 10: config 4's ICP batch, the register bound, config 5's tiles
 ICP_BATCH, ICP_POINTS, ICP_ITERS = 50, 2048, 20
 ICP_CPU_TOWERS = 4  # (b) holds the card against the CPU on this many towers
@@ -246,34 +243,6 @@ def padded(pts, cap: int):
     return xyz, np.arange(cap) < len(pts)
 
 
-def timed(fn, reps: int):
-    """Mean ms per call over reps calls after one warm-up, by CUDA events;
-    returns (ms, last result)."""
-    out = fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, out
-
-
-def issue_ms(fn, reps: int) -> float:
-    """Host ms per call to issue reps calls back to back (the device is
-    idle at the start, the queue is drained after); where it nears the event
-    ms of timed(), the host, not the device, sets the pace."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) * 1e3 / reps
-
-
 def max_abs(a, b) -> float:
     if a.numel() == 0:
         return 0.0
@@ -297,19 +266,17 @@ def require_equal(name, got, ref):
 
 
 def profile_iteration(fn, top: int = 15):
-    """One call of fn under torch.profiler: its wall ms, the device's busy
-    ms (device-side kernels and copies, summed), the idle share of the
-    wall, the top device ms by kernel name and the launches by name; device
-    figures are None when the profiler recorded no device time."""
+    """One call of fn under torch.profiler, after one unprofiled call: the
+    device ms it ran (device-side kernels and copies, summed), the top
+    device ms by kernel name and the launches by name; device_ms is None
+    when the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: an aten op's row repeats its kernels' time
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
@@ -317,10 +284,8 @@ def profile_iteration(fn, top: int = 15):
     device_ms = sum(device_us.values()) / 1e3
     ranked = sorted(device_us.items(), key=lambda kv: -kv[1])[:top]
     if device_ms == 0.0:
-        return dict(wall_ms=wall_ms, device_ms=None, idle_share=None, top=[], counts={})
-    return dict(wall_ms=wall_ms, device_ms=device_ms,
-                idle_share=max(0.0, 1.0 - device_ms / wall_ms),
-                top=[(k, v / 1e3) for k, v in ranked],
+        return dict(device_ms=None, top=[], counts={})
+    return dict(device_ms=device_ms, top=[(k, v / 1e3) for k, v in ranked],
                 counts={e.key: e.count for e in device})
 
 
@@ -470,7 +435,7 @@ def fma_check(dev, n: int = 1 << 22):
         raise AssertionError(f"fma_f32 on the card is not one rounding: {out}")
 
 
-def modular_phase(dev, pts, centers, reset_counts, read_counts, profile=None,
+def modular_phase(dev, pts, centers, reset_counts, read_counts,
                   n_small: int = N_SMALL, n_chunked: int = 100_000):
     """Phase 8: the modular extraction path (extract_step) through its user
     entry points, with no kernel's plain version allowed in (a)-(c):
@@ -490,9 +455,8 @@ def modular_phase(dev, pts, centers, reset_counts, read_counts, profile=None,
           and through the plain versions on the CPU: labels, keep, counts
           and accepted identical, accepted centres within 1 mm.
 
-    Wall ms (host clock) and, with ``profile``, device-busy ms of one more
-    run of (a)-(c) are printed.  Returns (results, launches by run, the
-    kernel calls (a) and (c) made, for phase 3)."""
+    Returns (results, launches by run, the kernel calls (a) and (c) made,
+    for phase 3)."""
     from pointcloudhookup_tpu_torch.config import ClusterParams, ExtractParams
     from pointcloudhookup_tpu_torch.entry import entry
     from pointcloudhookup_tpu_torch.io.las import make_las, write_las
@@ -501,22 +465,6 @@ def modular_phase(dev, pts, centers, reset_counts, read_counts, profile=None,
     from pointcloudhookup_tpu_torch.ops.kernels import (
         cluster_converge, compactrows, neighbor, obb_accum, segscan,
     )
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-
-    def wall(fn):
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        return (time.perf_counter() - t0) * 1e3, out
-
-    def busy(fn):
-        if profile is None:
-            return None
-        return profile(fn, top=0)["device_ms"]
 
     def require_towers(label, towers, tol=TOWER_TOL_M):
         got = [t.centroid for t in towers]
@@ -539,22 +487,17 @@ def modular_phase(dev, pts, centers, reset_counts, read_counts, profile=None,
         las_path = os.path.join(tmp, "corridor_small.las")
         write_las(make_las(small_pts), las_path)
         logs = []
-        run_a = lambda: pipeline.extract(las_path, device=dev, log_callback=logs.append)  # noqa: E731
         with no_plain_versions(kernels):
             reset_counts()
             with recording(cluster, "cluster_cells", calls["dbscan"]):
-                ms_a, towers = wall(run_a)
+                towers = pipeline.extract(las_path, device=dev, log_callback=logs.append)
             launches["modular_dbscan"] = read_counts(("cluster_converge",), "(a) extract()")
-            ms_a2, _ = wall(run_a)
-            busy_a = busy(run_a)
     route = next(line for line in logs if "path:" in line)
-    print(f"(a) extract() of {n_small} points: {route}; wall ms {ms_a:.1f} (first), "
-          f"{ms_a2:.1f} (second); device busy {busy_a} ms")
+    print(f"(a) extract() of {n_small} points: {route}")
     if not route.startswith("modular path") or len(calls["dbscan"]) != 1:
         raise AssertionError(f"(a) did not run dbscan once: {route}")
     require_towers("(a) extract()", towers)
-    results["a"] = dict(points=n_small, wall_ms=[ms_a, ms_a2], device_ms=busy_a,
-                        towers=len(towers), route=route)
+    results["a"] = dict(points=n_small, towers=len(towers), route=route)
 
     # ---- (b) the fast=False resolver on a saturated big tile
     max_clusters = 128
@@ -567,36 +510,33 @@ def modular_phase(dev, pts, centers, reset_counts, read_counts, profile=None,
     print(f"(b) max_clusters {max_clusters}: the top tile saturates "
           f"({int(top['alive'].sum())} clusters alive)")
     modular_runs = []
-    run_b = lambda: overflow.extract_from_points_resolving(pts, p_b, fast=False, device=dev)  # noqa: E731
     with no_plain_versions(kernels):
         reset_counts()
         with recording(pipeline, "_extract_stats_modular", modular_runs):
-            ms_b, (towers_b, info) = wall(run_b)
+            towers_b, info = overflow.extract_from_points_resolving(pts, p_b, fast=False,
+                                                                    device=dev)
         launches["modular_resolver"] = read_counts(EXACT_PATH, "(b) resolver, fast=False")
-        busy_b = busy(run_b)
     sizes = [int(args[1].sum()) for args, _ in modular_runs]
-    print(f"(b) resolver, fast=False: wall ms {ms_b:.1f}, device busy {busy_b} ms; {info}; "
-          f"{len(modular_runs)} tiles of {sizes} points on the modular path (the others "
-          f"above auto_grid_threshold take the exact path)")
+    print(f"(b) resolver, fast=False: {info}; {len(modular_runs)} tiles of {sizes} points on "
+          f"the modular path (the others above auto_grid_threshold take the exact path)")
     require_towers("(b) resolver, fast=False", towers_b)
     if not info["resolved"] or not info["saturated_tiles"] or not modular_runs:
         raise AssertionError(f"(b) resolver: {info}, {len(modular_runs)} modular tiles")
-    results["b"] = dict(max_clusters=max_clusters, wall_ms=ms_b, device_ms=busy_b,
-                        info=info, modular_tiles=sizes, towers=len(towers_b))
+    results["b"] = dict(max_clusters=max_clusters, info=info, modular_tiles=sizes,
+                        towers=len(towers_b))
 
     # ---- (c) grid_dbscan on the big tile at a capacity with no exact plan
     p_c = ExtractParams(cluster=ClusterParams(method="grid"))
     cap_c = -(-len(pts) // 1024) * 1024 + 1024
-    run_c = lambda: pipeline.extract_from_points(pts, p_c, capacity=cap_c, device=dev)  # noqa: E731
     with no_plain_versions(kernels):
         reset_counts()
         with recording(cluster_grid, "cluster_cells", calls["grid_cells"]), \
                 recording(cluster_grid, "compact_rows_multi", calls["grid_pack"]), \
                 recording(segments.segscan, "segmented_scan", calls["grid_scans"]):
-            ms_c, (towers_c, stats_c, _) = wall(run_c)
+            towers_c, stats_c, _ = pipeline.extract_from_points(pts, p_c, capacity=cap_c,
+                                                                device=dev)
         launches["modular_grid"] = read_counts(("compactrows", "segscan", "cluster_converge"),
                                                "(c) grid")
-        busy_c = busy(run_c)
     mod = stats_c["modular"]
     if not calls["grid_cells"]:
         raise AssertionError("(c) did not run grid_dbscan")
@@ -605,12 +545,10 @@ def modular_phase(dev, pts, centers, reset_counts, read_counts, profile=None,
                  .min(axis=1, initial=np.inf) <= TOWER_TOL_M).sum())
     print(f"(c) grid, capacity {cap_c}: grid_dbscan, density floor {mod['floor']}, "
           f"cells_overflow {mod['cells_overflow']}; towers {len(towers_c)} accepted, {found} "
-          f"within {TOWER_TOL_M} m of a generated one, {len(centers)} generated; wall ms "
-          f"{ms_c:.1f}, device busy {busy_c} ms")
+          f"within {TOWER_TOL_M} m of a generated one, {len(centers)} generated")
     results["c"] = dict(capacity=cap_c, floor=mod["floor"],
                         cells_overflow=mod["cells_overflow"], towers=len(towers_c),
-                        towers_near=found, towers_expected=len(centers), wall_ms=ms_c,
-                        device_ms=busy_c)
+                        towers_near=found, towers_expected=len(centers))
 
     # ---- (d) on dev vs the plain versions on the CPU
     def same(label, got, ref):
@@ -642,34 +580,25 @@ def modular_phase(dev, pts, centers, reset_counts, read_counts, profile=None,
 
 
 @contextlib.contextmanager
-def stage_walls(module, names, dev, walls, counter):
-    """Time every call of module.<name> for the given names (wall ms, the
-    device drained before and after) into walls[name], and the rise of the
-    kernel counter ``counter`` (utils/trace.py) in walls[name + "_launches"].
-    The calls go through."""
+def counter_rises(module, attr, counter, rises):
+    """Append the rise of the counter ``counter`` (utils/trace.py) over each
+    call of module.attr made while the block runs to rises; the calls go
+    through."""
     from pointcloudhookup_tpu_torch.utils import trace
 
-    saved = {name: getattr(module, name) for name in names}
+    fn = getattr(module, attr)
 
-    def timed_call(name, fn):
-        def call(*args, **kwargs):
-            torch.cuda.synchronize(dev)
-            before = trace.counter(counter)
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize(dev)
-            walls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-            walls.setdefault(f"{name}_launches", []).append(trace.counter(counter) - before)
-            return out
-        return call
+    def call(*args, **kwargs):
+        before = trace.counter(counter)
+        out = fn(*args, **kwargs)
+        rises.append(trace.counter(counter) - before)
+        return out
 
-    for name, fn in saved.items():
-        setattr(module, name, timed_call(name, fn))
+    setattr(module, attr, call)
     try:
-        yield walls
+        yield rises
     finally:
-        for name, fn in saved.items():
-            setattr(module, name, fn)
+        setattr(module, attr, fn)
 
 
 def voxel_parity(label, xyz, mask, voxel_size, chunk_size, dev):
@@ -735,19 +664,16 @@ def gim_files(tmp, pts, centers):
     shift = np.array([e0, n0, 80.0])
     world, towers_w = pts + shift, centers + shift
     glon, glat = tm_inverse(towers_w[:, 0], towers_w[:, 1])
-    t0 = time.perf_counter()
     las_path = os.path.join(tmp, "tile.las")
     write_las(make_las(world, scales=[0.01, 0.01, 0.01]), las_path)
     gts = [dict(id=f"P{i}", lat=float(glat[i]), lng=float(glon[i]),
                 h=float(towers_w[i, 2]) - 25.0, r=5.0) for i in range(len(towers_w))]
     gim_path = os.path.join(tmp, "model.gim")
     build_synthetic_gim(gim_path, gts, workdir=os.path.join(tmp, "tree"))
-    print(f"tile as LAS at scale 0.01 and a {len(gts)}-tower GIM written in "
-          f"{time.perf_counter() - t0:.1f} s")
     return las_path, gim_path, world, gts, glon, glat
 
 
-def gim_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, profile):
+def gim_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules):
     """Phase 9: the GIM workflow on the card.
 
       (a) ``python -m pointcloudhookup_tpu_torch run-all`` through
@@ -757,7 +683,6 @@ def gim_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, prof
           (h = z - 25); exit 0, "24 towers corrected", the 776-byte header
           kept, 24 re-parsed towers, every BLHA changed and each within 10 m
           (haversine) of its generated tower; segscan launched by compress;
-          each stage's wall ms, and compress's device-busy ms and idle share;
       (b) voxel_downsample and voxel_downsample_chunked (chunk 32,768) on a
           131,072-row tile on the card and on the CPU (voxel_parity);
       (c) ``reproject`` of (a)'s LAS through ``__main__.main``: the f32
@@ -782,31 +707,24 @@ def gim_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, prof
         out_gim = os.path.join(tmp, "corrected.gim")
         argv = ["run-all", las_path, gim_path, out_gim, "--device", str(dev),
                 "--output-folder", os.path.join(tmp, "og"), "--csv", os.path.join(tmp, "r.csv")]
-        walls, scans, buf = {}, [], io.StringIO()
-        stages = ("compress", "extract", "import_gim", "correct", "save_gim")
+        compress_launches, scans, buf = [], [], io.StringIO()
         with no_plain_versions(kernel_modules), \
-                stage_walls(pipeline, stages, dev, walls, KERNELS["segscan"][2]), \
+                counter_rises(pipeline, "compress", KERNELS["segscan"][2], compress_launches), \
                 recording(segscan, "segmented_scan", scans), contextlib.redirect_stdout(buf):
             reset_counts()
-            t0 = time.perf_counter()
             try:
                 cli(argv)
                 code = None
             except SystemExit as e:
                 code = e.code
-            torch.cuda.synchronize(dev)
-            total_ms = (time.perf_counter() - t0) * 1e3
         launches = read_counts(EXACT_PATH, "(a) run-all")
         out = buf.getvalue()
         for line in out.splitlines():
             print(f"  run-all | {line}")
-        stage_ms = {name: walls[name][0] for name in stages}
-        print(f"(a) run-all: exit {code}, wall {total_ms:.1f} ms; stages (wall ms): "
-              + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
-              + f"; segscan launches in compress {walls['compress_launches'][0]}")
+        print(f"(a) run-all: exit {code}; segscan launches in compress {compress_launches[0]}")
         if code != 0 or f"{len(gts)} towers corrected" not in out:
             raise AssertionError(f"(a) run-all: exit {code}, not '{len(gts)} towers corrected'")
-        if walls["compress_launches"][0] < 1:
+        if compress_launches[0] < 1:
             raise AssertionError("(a) compress did not launch segscan")
         compress_scan = next(a for a, _ in scans if a[0].dim() == 2 and a[0].shape[1] == 4)
         with open(gim_path, "rb") as f, open(out_gim, "rb") as g:
@@ -825,28 +743,16 @@ def gim_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, prof
         if len(after) != len(gts) or changed != len(gts) or dist.max() > 10.0:
             raise AssertionError(f"(a) {len(after)} towers, {changed} changed, worst "
                                  f"{dist.max():.2f} m")
-        prof = profile(lambda: pipeline.compress(las_path, os.path.join(tmp, "p.las"),
-                                                 device=dev), top=8)
-        print(f"(a) compress, one profiled call: wall {prof['wall_ms']:.1f} ms, device busy "
-              f"{prof['device_ms']} ms, idle share {prof['idle_share']}; device ms by kernel: "
-              + ", ".join(f"{k[:60]} {v:.4f}" for k, v in prof["top"]))
-        results["a"] = dict(points=len(world), exit=code, wall_ms=total_ms, stage_ms=stage_ms,
-                            compress_segscan_launches=walls["compress_launches"][0],
-                            towers=len(after), changed=changed, worst_m=float(dist.max()),
-                            compress_profile=dict(wall_ms=prof["wall_ms"],
-                                                  device_ms=prof["device_ms"],
-                                                  idle_share=prof["idle_share"]))
+        results["a"] = dict(points=len(world), exit=code,
+                            compress_segscan_launches=compress_launches[0],
+                            towers=len(after), changed=changed, worst_m=float(dist.max()))
 
         # ---- (c) reproject (a)'s tile: the CLI, then its device deltas
         deg_path = os.path.join(tmp, "deg.las")
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             cli(["reproject", las_path, deg_path, "--device", str(dev)])
-        ms_c = (time.perf_counter() - t0) * 1e3
         src = read_las(las_path).xyz()
-        t0 = time.perf_counter()
         lon, lat = tm_inverse(src[:, 0], src[:, 1])
-        host_ms = (time.perf_counter() - t0) * 1e3
         e_0, n_0 = float(src[:, 0].mean()), float(src[:, 1].mean())
         lt = local_cgcs2000_to_wgs84(e_0, n_0)
         d_err = 0.0
@@ -860,13 +766,12 @@ def gim_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, prof
                         float(np.abs(lt.v0 + dlat.cpu().numpy().astype(np.float64) - lat[sl]).max()))
         deg = read_las(deg_path).xyz()
         las_err = float(max(np.abs(deg[:, 0] - lon).max(), np.abs(deg[:, 1] - lat).max()))
-        print(f"(c) reproject of {len(src)} points: wall {ms_c:.1f} ms (host f64 inverse "
-              f"{host_ms:.1f} ms); device deltas within {d_err:.3g} deg of the f64 inverse "
-              f"(bound 2e-8), the written LAS within {las_err:.3g} deg (bound 7e-8)")
+        print(f"(c) reproject of {len(src)} points: device deltas within {d_err:.3g} deg of "
+              f"the f64 inverse (bound 2e-8), the written LAS within {las_err:.3g} deg "
+              f"(bound 7e-8)")
         if d_err > 2e-8 or las_err > 5e-8 + 2e-8:
             raise AssertionError(f"(c) reproject: {d_err} / {las_err} deg")
-        results["c"] = dict(points=len(src), wall_ms=ms_c, host_f64_ms=host_ms,
-                            max_err_deg=d_err, las_err_deg=las_err)
+        results["c"] = dict(points=len(src), max_err_deg=d_err, las_err_deg=las_err)
 
     # ---- (b) compress on the card vs the CPU, 131,072 rows, both variants
     n_b = 131_072
@@ -957,16 +862,17 @@ def icp50_sweep():
 
 def nearest_sweep_case(label, arrays, dev):
     """nearest_moved (csrc/nearest.cu) against nearest_moved_plain on the
-    card: index, d^2 and matched rows bit for bit, then event ms (CUDA
-    events over BENCH_ITERS calls; 3 for the plain version), the device ms
-    a call over SWEEP_PROFILE_CALLS profiled calls of each (None where the
-    profiler recorded no sweep kernel), the launches, and the bound as
-    portbench/metrics/icp_roofline.py counts it (6 float32 operations a
+    card: index, d^2 and matched rows bit for bit, one icp.nearest_kernel
+    count a call, the device ms a call over SWEEP_PROFILE_CALLS profiled
+    calls (None where the profiler recorded no sweep kernel), and the bound
+    as portbench/metrics/icp_roofline.py counts it (6 float32 operations a
     valid frame row x valid destination row; the rows read once, index and
     d^2 written once)."""
     from pointcloudhookup_tpu_torch.ops.kernels import nearest
+    from pointcloudhookup_tpu_torch.utils import trace
 
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    before = trace.counter("icp.nearest_kernel")
     got = nearest.nearest_moved(*args)
     ref = nearest.nearest_moved_plain(*args)
     for name, g, r in zip(("idx", "d2", "matched"), got, ref):
@@ -975,16 +881,11 @@ def nearest_sweep_case(label, arrays, dev):
         if not torch.equal(g, r):
             raise AssertionError(f"(b) nearest sweep {label}: {name} differs from the plain "
                                  f"version in {int((g != r).sum())} places")
-    before = nearest.launches
-    ms_k, _ = timed(lambda: nearest.nearest_moved(*args), BENCH_ITERS)
-    launched = nearest.launches - before
-    ms_p, _ = timed(lambda: nearest.nearest_moved_plain(*args), 3)
     calls = SWEEP_PROFILE_CALLS
     prof_k = profile_iteration(lambda: [nearest.nearest_moved(*args) for _ in range(calls)], top=4)
-    prof_p = profile_iteration(lambda: [nearest.nearest_moved_plain(*args) for _ in range(calls)])
+    launched = trace.counter("icp.nearest_kernel") - before
     seen = any("sweep_kernel" in k for k, _ in prof_k["top"])
     dev_k = prof_k["device_ms"] / calls if seen else None
-    dev_p = prof_p["device_ms"] / calls if prof_p["device_ms"] else None
     n_valid = arrays[1].sum(axis=1).astype(np.float64)
     m_valid = arrays[3].sum(axis=1).astype(np.float64)
     ops = 6.0 * float((n_valid * m_valid).sum())
@@ -992,14 +893,13 @@ def nearest_sweep_case(label, arrays, dev):
     bound_ms = max(ops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
     b, n, m = arrays[0].shape[0], arrays[0].shape[1], arrays[2].shape[1]
     print(f"(b) nearest sweep {label} [{b}, {n}, {m}] (valid pairs {ops / 6:.4g}): kernel "
-          f"{ms_k:.4f} ms (event) / {dev_k} ms (device), bound {bound_ms:.4f} ms "
-          f"(operations), {launched} launches for {BENCH_ITERS + 1} calls; plain "
-          f"{ms_p:.3f} ms (event) / {dev_p} ms (device); bit-equal; kernel device ms by "
-          f"kernel over {calls} calls: " + ", ".join(f"{k[:40]} {v:.4f}" for k, v in prof_k["top"]))
-    if launched != BENCH_ITERS + 1:
+          f"{dev_k} ms (device), bound {bound_ms:.4f} ms (operations), {launched} launches "
+          f"for {1 + 2 * calls} calls; bit-equal; kernel device ms by kernel over {calls} "
+          "calls: " + ", ".join(f"{k[:40]} {v:.4f}" for k, v in prof_k["top"]))
+    if launched != 1 + 2 * calls:
         raise AssertionError(f"(b) nearest sweep {label}: {launched} launches")
-    return dict(shape=[b, n, m], pairs=ops / 6, kernel_ms=ms_k, kernel_device_ms=dev_k,
-                bound_ms=bound_ms, plain_ms=ms_p, plain_device_ms=dev_p, launches=launched)
+    return dict(shape=[b, n, m], pairs=ops / 6, kernel_device_ms=dev_k, bound_ms=bound_ms,
+                launches=launched)
 
 
 def gim_scenario(tmp):
@@ -1032,7 +932,7 @@ def gim_scenario(tmp):
 
 
 def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, counts_now,
-                                 kernel_modules, profile):
+                                 kernel_modules):
     """Phase 10: registration and tile streaming on the card.
 
       (a) ``correct --icp --save`` through ``__main__.main`` on phase 9's
@@ -1044,17 +944,15 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
           on ICP_CPU_TOWERS pairs and the farthest one, the saved GIM
           reopens, every sweep one launch of the nearest-sweep kernel
           (icp.nearest_kernel equals icp.sweeps) and none of the ten
-          kernels; wall ms of extract, ICP and save, the ICP's device-busy
-          ms;
+          kernels;
       (b) batched_icp at config 4's shape (50 towers, 2,048 points, 20
           iterations): R within 0.05 and t within 0.2 m of the planted
           motions, R within 1e-4 and t within 1e-3 m of the CPU's on the
-          first ICP_CPU_TOWERS towers; ms per call, tower-ICP-iterations
-          per second, host syncs per ICP iteration; nearest_moved at that
-          shape and at icp50.correct's (50 frames of 280 rows, member
-          clouds of 12,000-14,000 rows): index, d^2 and matched rows
-          bit-equal to nearest_moved_plain, event and device ms of each,
-          the kernel's bound and launches;
+          first ICP_CPU_TOWERS towers; host syncs per ICP iteration;
+          nearest_moved at that shape and at icp50.correct's (50 frames of
+          280 rows, member clouds of 12,000-14,000 rows): index, d^2 and
+          matched rows bit-equal to nearest_moved_plain, one launch a call,
+          the kernel's device ms and bound;
       (c) ``register`` on the 4M tile: 24 transforms printed, the ICP's
           peak allocated device memory within REGISTER_PEAK_BOUND;
       (d) stream_extract with config 5's parameters (method grid, 8,192
@@ -1064,11 +962,10 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
           the towers merged as ``stream-extract`` merges them: 24 towers a
           tile, 1,200 after the cross-tile dedup, each generated tower
           within TOWER_TOL_M (xy) of a member centroid, the native reader;
-          wall s, Mpts/s, decode and staging ms a tile, and over two
-          profiled tiles the host-to-device ms, device-busy ms and idle
-          share; the launches of one fast and one modular tile, and
-          their kernel calls (for phase 3); the governor's capacity; the device bytes a point of capacity of one
-          fused and one modular step on the 4M tile;
+          the launches of one fast and one modular tile, and their kernel
+          calls (for phase 3); the governor's capacity; the device bytes a
+          point of capacity of one fused and one modular step on the 4M
+          tile;
       (e) the card against the CPU: a 131,072-row corridor streamed in
           32,768-row chunks on both wires (staged coordinates bit-equal),
           fast and modular (the same towers, centres within 1 mm), and
@@ -1097,11 +994,9 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
 
     def run_cli(argv):
         buf = io.StringIO()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             cli(argv)
-        torch.cuda.synchronize(dev)
-        return (time.perf_counter() - t0) * 1e3, buf.getvalue()
+        return buf.getvalue()
 
     @contextlib.contextmanager
     def capturing(module, attr, calls, before=None, **extra):
@@ -1127,7 +1022,7 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
 
         # ---- (a) correct --icp on the card, no plain version allowed
         out_gim = os.path.join(tmp, "icp.gim")
-        walls, refined, icp_counts = {}, [], []
+        refined, icp_counts = [], []
 
         def count_before():
             icp_counts.append(counts_now())
@@ -1135,15 +1030,10 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
 
         sweeps = []
         with no_plain_versions(kernel_modules + [nearest]), \
-                stage_walls(pipeline, ("extract_from_points", "save_gim"), dev, walls,
-                            KERNELS["segscan"][2]), \
-                stage_walls(refine, ("refine_tower_centers",), dev, walls,
-                            KERNELS["segscan"][2]), \
                 capturing(refine, "refine_tower_centers", refined, before=count_before):
             reset_counts()
-            ms_a, out = run_cli(["correct", gim_path, las_path, "--icp", "--save", out_gim,
-                                 "--device", str(dev), "--output-folder",
-                                 os.path.join(tmp, "oa")])
+            out = run_cli(["correct", gim_path, las_path, "--icp", "--save", out_gim,
+                           "--device", str(dev), "--output-folder", os.path.join(tmp, "oa")])
             icp_counts.append(counts_now())
             sweeps.append((trace.counter("icp.sweeps"), trace.counter("icp.nearest_kernel")))
         read_counts(EXACT_PATH, "(a) correct --icp")
@@ -1168,20 +1058,13 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
             off[pi] <= towers_a[pi].extent[1] / 2 for pi in far)
         rmse_lines = [ln for ln in out.splitlines() if "icp rmse" in ln]
         reopened, _, _ = pipeline.import_gim(out_gim, os.path.join(tmp, "ra"))
-        prof_icp = profile(lambda: refine.refine_tower_centers(*args, **kwargs), top=8)
-        stage = dict(extract=walls["extract_from_points"][0],
-                     icp=walls["refine_tower_centers"][0], save=walls["save_gim"][0])
-        print(f"(a) correct --icp: wall {ms_a:.1f} ms; stages (wall ms) "
-              + ", ".join(f"{k} {v:.1f}" for k, v in stage.items())
-              + f"; {len(ref_out)} towers refined, {len(rmse_lines)} rmse lines, refined "
-              f"centres from the member centroid (xy): worst {shift_xy:.3f} m, "
+        print(f"(a) correct --icp: {len(ref_out)} towers refined, {len(rmse_lines)} rmse "
+              f"lines, refined centres from the member centroid (xy): worst {shift_xy:.3f} m, "
               f"{len(off) - len(far)} within {TOWER_TOL_M} m, beyond it (m, box width ey) "
-              f"{far}, only towers of {ICP_WIDENED} and within ey / 2: {inside}; card vs CPU on pairs {sub}: centres "
-              f"within {vs_cpu:.3g} m; {icp_sweeps} sweeps, {nearest_launches} nearest-sweep "
-              f"kernel launches, launches of the ten in the ICP {icp_launches}; saved GIM reopens with {len(reopened)} towers; ICP, one "
-              f"profiled call: wall {prof_icp['wall_ms']:.1f} ms, device busy "
-              f"{prof_icp['device_ms']} ms, idle share {prof_icp['idle_share']}; device ms by "
-              "kernel: " + ", ".join(f"{k[:50]} {v:.3f}" for k, v in prof_icp["top"]))
+              f"{far}, only towers of {ICP_WIDENED} and within ey / 2: {inside}; card vs CPU "
+              f"on pairs {sub}: centres within {vs_cpu:.3g} m; {icp_sweeps} sweeps, "
+              f"{nearest_launches} nearest-sweep kernel launches, launches of the ten in the "
+              f"ICP {icp_launches}; saved GIM reopens with {len(reopened)} towers")
         if (f"{len(gts)} pairs matched" not in out or len(rmse_lines) != len(gts)
                 or len(ref_out) != len(gts) or not inside or vs_cpu > 1e-3
                 or len(reopened) != len(gts) or "saved" not in out.splitlines()
@@ -1191,12 +1074,9 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
                                  f"{inside}, vs CPU {vs_cpu}, {len(reopened)} reopened, "
                                  f"launches {icp_launches}, {icp_sweeps} sweeps, "
                                  f"{nearest_launches} nearest launches")
-        results["a"] = dict(wall_ms=ms_a, stage_ms=stage, refined=len(ref_out),
-                            worst_centroid_m=shift_xy, beyond_tol=far, vs_cpu_m=vs_cpu,
-                            icp_launches=icp_launches, icp_sweeps=icp_sweeps,
+        results["a"] = dict(refined=len(ref_out), worst_centroid_m=shift_xy, beyond_tol=far,
+                            vs_cpu_m=vs_cpu, icp_launches=icp_launches, icp_sweeps=icp_sweeps,
                             nearest_launches=nearest_launches,
-                            icp_profile={k: prof_icp[k] for k in ("wall_ms", "device_ms",
-                                                                   "idle_share")},
                             template_points=int(len(refine.tower_frame_template(30.0, 10.0))),
                             cloud_points_max=int(max(len(clouds[pi]) for pi in pair_idx)))
 
@@ -1210,51 +1090,42 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
 
         regs = []
         with capturing(registration, "register_tower_pairs", regs, before=reset_peak):
-            ms_c, out = run_cli(["register", gim_path, las_path, "--device", str(dev),
-                                 "--output-folder", os.path.join(tmp, "oc")])
+            out = run_cli(["register", gim_path, las_path, "--device", str(dev),
+                           "--output-folder", os.path.join(tmp, "oc")])
         peak = torch.cuda.max_memory_allocated(dev) - peaks[0]
         lines = [ln for ln in out.splitlines() if ln.startswith("GIM[")]
         pc, gc = regs[0][0][0], regs[0][0][1]
         untiled = len(pc) * max(map(len, pc)) * max(map(len, gc)) * 4
-        print(f"(c) register: wall {ms_c:.1f} ms, {len(lines)} transforms; batch {len(pc)} x "
+        print(f"(c) register: {len(lines)} transforms; batch {len(pc)} x "
               f"{max(map(len, pc))} x {max(map(len, gc))}: peak allocated in the ICP "
               f"{peak / 2**20:.1f} MiB (bound {REGISTER_PEAK_BOUND / 2**20:.0f} MiB; an untiled "
               f"d2 alone {untiled / 2**30:.2f} GiB); first: {lines[0] if lines else None}")
         if len(lines) != len(gts) or peak > REGISTER_PEAK_BOUND:
             raise AssertionError(f"(c) register: {len(lines)} transforms, peak {peak} bytes")
-        results["c"] = dict(wall_ms=ms_c, transforms=len(lines), peak_bytes=peak,
+        results["c"] = dict(transforms=len(lines), peak_bytes=peak,
                             bound_bytes=REGISTER_PEAK_BOUND, untiled_d2_bytes=untiled,
                             batch=[len(pc), max(map(len, pc)), max(map(len, gc))])
 
-    # ---- (b) config 4's batch: recovery, card vs CPU, speed, syncs
+    # ---- (b) config 4's batch: recovery, card vs CPU, syncs
     src, mask, dst, rots, ts = config4_batch()
     args_d = [torch.from_numpy(a).to(dev) for a in (src, mask, dst, mask)]
-    ms_b, out = timed(lambda: registration.batched_icp(*args_d, iters=ICP_ITERS), 3)
+    out = registration.batched_icp(*args_d, iters=ICP_ITERS)
     r_err = float(np.abs(out["R"].cpu().numpy() - rots).max())
     t_err = float(np.abs(out["t"].cpu().numpy() - ts).max())
     k = ICP_CPU_TOWERS
-    t0 = time.perf_counter()
     ref = registration.batched_icp(*(torch.from_numpy(a[:k]) for a in (src, mask, dst, mask)),
                                    iters=ICP_ITERS)
-    cpu_s = time.perf_counter() - t0
     r_cpu = max_abs(out["R"][:k].cpu(), ref["R"])
     t_cpu = max_abs(out["t"][:k].cpu(), ref["t"])
-    prof_b = profile(lambda: registration.batched_icp(*args_d, iters=ICP_ITERS), top=6)
     syncs = [syncs_in(lambda i=i: registration.batched_icp(*args_d, iters=i)) for i in (1, 2)]
-    rate = ICP_BATCH * ICP_ITERS / (ms_b / 1e3)
-    print(f"(b) batched_icp {ICP_BATCH} x {ICP_POINTS}, {ICP_ITERS} iterations: {ms_b:.2f} ms a "
-          f"call, {rate:.0f} tower-ICP-iterations/s; from the planted motions R {r_err:.2e}, "
-          f"t {t_err:.2e} m (bounds 0.05, 0.2); card vs CPU ({k} towers, {cpu_s:.1f} s on the "
-          f"CPU) R {r_cpu:.2e}, t {t_cpu:.2e} m (bounds 1e-4, 1e-3); host syncs per call at 1 "
-          f"and 2 iterations {syncs} -> {syncs[1] - syncs[0]} a iteration; one profiled call: "
-          f"device busy {prof_b['device_ms']} ms, idle share {prof_b['idle_share']}; device ms "
-          "by kernel: " + ", ".join(f"{k_[:50]} {v:.3f}" for k_, v in prof_b["top"]))
+    print(f"(b) batched_icp {ICP_BATCH} x {ICP_POINTS}, {ICP_ITERS} iterations: from the "
+          f"planted motions R {r_err:.2e}, t {t_err:.2e} m (bounds 0.05, 0.2); card vs CPU "
+          f"({k} towers) R {r_cpu:.2e}, t {t_cpu:.2e} m (bounds 1e-4, 1e-3); host syncs per "
+          f"call at 1 and 2 iterations {syncs} -> {syncs[1] - syncs[0]} a iteration")
     if r_err > 0.05 or t_err > 0.2 or r_cpu > 1e-4 or t_cpu > 1e-3:
         raise AssertionError(f"(b) batched_icp: R {r_err}, t {t_err}, vs CPU {r_cpu}, {t_cpu}")
-    results["b"] = dict(ms=ms_b, tower_icp_iters_per_s=rate, r_err=r_err, t_err=t_err,
-                        r_vs_cpu=r_cpu, t_vs_cpu=t_cpu, syncs_1_2=syncs,
-                        syncs_per_iteration=syncs[1] - syncs[0],
-                        device_ms=prof_b["device_ms"], idle_share=prof_b["idle_share"],
+    results["b"] = dict(r_err=r_err, t_err=t_err, r_vs_cpu=r_cpu, t_vs_cpu=t_cpu,
+                        syncs_1_2=syncs, syncs_per_iteration=syncs[1] - syncs[0],
                         nearest={label: nearest_sweep_case(label, arrays, dev)
                                  for label, arrays in (
                                      ("config4", config4_sweep(src, mask, dst)),
@@ -1264,7 +1135,6 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
     p5 = ExtractParams(cluster=ClusterParams(method="grid", max_cells=8192,
                                              min_cell_points=3))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
-        t0 = time.perf_counter()
         paths, all_centers, n_total = [], [], 0
         for t in range(STREAM_TILES):
             p, c = corridor_tile(STREAM_TILE_N, seed=t)
@@ -1274,49 +1144,21 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
             all_centers.append(c + shift)
             n_total += len(p)
         all_centers = np.concatenate(all_centers)
-        print(f"(d) {STREAM_TILES} tiles, {n_total} points, written in "
-              f"{time.perf_counter() - t0:.1f} s")
         b_gov = governor.budget(device=dev, n_points=STREAM_TILE_N)
         with no_plain_versions(kernel_modules):
-            torch.cuda.synchronize(dev)
-            trace.reset()
-            trace.enable()
-            t0 = time.perf_counter()
-            try:
-                res = streaming.stream_extract(paths, capacity=STREAM_TILE_N, params=p5,
-                                               fast=True, wire="u16", prefetch=1,
-                                               timings=True, device=dev)
-            finally:
-                trace.disable()
-            stream_ms = (time.perf_counter() - t0) * 1e3
-            phase_ms = {}
-            for sp in trace.spans():
-                phase_ms.setdefault(sp.name, []).append((sp.t1_ns - sp.t0_ns) / 1e6)
-            towers = []
-            for st, m in res:
-                towers.extend(towers_from_stats(st, np.asarray(m["origin"])))
-            kept = quality_dedup(towers, loose_radius=p5.filters.duplicate_threshold)
-            ms_d = (time.perf_counter() - t0) * 1e3
-        metas = [m for _, m in res]
+            res = streaming.stream_extract(paths, capacity=STREAM_TILE_N, params=p5,
+                                           fast=True, wire="u16", prefetch=1, device=dev)
+        towers = []
+        for st, m in res:
+            towers.extend(towers_from_stats(st, np.asarray(m["origin"])))
+        kept = quality_dedup(towers, loose_radius=p5.filters.duplicate_threshold)
         worst = nearest_xy(all_centers, [tw.centroid for tw in kept])
         per_tile_towers = sorted({int(st["accepted"].sum()) for st, _ in res})
-        readers = sorted({m["reader"] for m in metas})
-        decode_ms = float(np.mean(phase_ms["stream.decode"]))
-        stage_ms = float(np.mean(phase_ms["stream.stage"]))
-        step_ms = 1e3 * np.mean([m["step_seconds"] for m in metas])
-        prof_d = profile(lambda: streaming.stream_extract(
-            paths[:2], capacity=STREAM_TILE_N, params=p5, fast=True, device=dev), top=40)
-        h2d_ms = sum(v for k_, v in prof_d["top"] if "HtoD" in k_) / 2
-        print(f"(d) stream_extract: {len(kept)} towers across {len(res)} tiles; wall "
-              f"{ms_d / 1e3:.2f} s, {n_total / ms_d / 1e3:.2f} Mpts/s end to end (the streaming "
-              f"{stream_ms / 1e3:.2f} s, {n_total / stream_ms / 1e3:.2f} Mpts/s; the towers and "
-              f"the cross-tile dedup {(ms_d - stream_ms) / 1e3:.2f} s); towers a tile "
-              f"{per_tile_towers}, worst generated tower from a member centroid {worst:.3f} m "
-              f"(xy); reader {readers}; a tile: decode {decode_ms:.1f} ms, staging "
-              f"{stage_ms:.1f} ms, step (dispatch and [K] fetches) {step_ms:.1f} ms; two "
-              f"profiled tiles: wall {prof_d['wall_ms']:.1f} ms, device busy "
-              f"{prof_d['device_ms']} ms, idle share {prof_d['idle_share']}, host-to-device "
-              f"{h2d_ms:.3f} ms a tile; governor: capacity {b_gov.capacity:,} ({b_gov.reason})")
+        readers = sorted({m["reader"] for _, m in res})
+        print(f"(d) stream_extract of {STREAM_TILES} tiles, {n_total} points: {len(kept)} "
+              f"towers across {len(res)} tiles; towers a tile {per_tile_towers}, worst "
+              f"generated tower from a member centroid {worst:.3f} m (xy); reader {readers}; "
+              f"governor: capacity {b_gov.capacity:,} ({b_gov.reason})")
         if (len(res) != STREAM_TILES or per_tile_towers != [24]
                 or len(kept) != len(all_centers) or worst > TOWER_TOL_M
                 or readers != ["native"]):
@@ -1328,19 +1170,13 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
                 reset_counts()
                 one = streaming.stream_extract(paths[:1], capacity=STREAM_TILE_N, params=p5,
                                                fast=fast, device=dev)
-                torch.cuda.synchronize(dev)
             launches[name] = read_counts(path_kernels, f"(d) one stream_extract tile, "
                                                        f"{'fast' if fast else 'modular'}")
             print(f"(d) one {'fast' if fast else 'modular'} tile: "
                   f"{int(one[0][0]['accepted'].sum())} towers")
-        results["d"] = dict(tiles=STREAM_TILES, points=n_total, wall_s=ms_d / 1e3,
-                            mpts_per_s=n_total / ms_d / 1e3, stream_s=stream_ms / 1e3,
-                            stream_mpts_per_s=n_total / stream_ms / 1e3, towers=len(kept),
-                            worst_m=worst, readers=readers, decode_ms=decode_ms,
-                            staging_ms=stage_ms, step_ms=step_ms, h2d_ms_per_tile=h2d_ms,
-                            profile={k_: prof_d[k_] for k_ in ("wall_ms", "device_ms",
-                                                                "idle_share")},
-                            governor_capacity=b_gov.capacity, governor_reason=b_gov.reason)
+        results["d"] = dict(tiles=STREAM_TILES, points=n_total, towers=len(kept),
+                            worst_m=worst, readers=readers, governor_capacity=b_gov.capacity,
+                            governor_reason=b_gov.reason)
 
     # device memory a point of capacity: one fused and one modular step, 4M
     xyz_np, mask_np = padded(pts, N_POINTS)
@@ -1435,7 +1271,8 @@ def registration_streaming_phase(dev, pts, centers, reset_counts, read_counts, c
 SHARDED_RANKS = 4
 SHARDED_SMALL = 32_768  # rows a rank in the card-vs-CPU check
 SHARDED_MODES = ("modular", "fast", "exact")
-SHARDED_REPS = 3
+# Group's collectives, as the tracer counts them (collective.<name>)
+COLLECTIVES = ("psum", "pmin", "pmax", "all_gather", "ppermute")
 # dryrun_multichip's gate, n ranks against one: box centres in exact mode
 # (one global cell grid); member centroids in every mode, plus what f32
 # summation order may move them.  The modular and fast steps anchor each
@@ -1502,16 +1339,15 @@ def to_device(obj, dev):
 
 def sharded_rank(device, runs, params, capture):
     """Phase 11's rank (run by parallel.launch.run_ranks): for each run
-    (label -> (xyz, mask, exact cell bits, reps), this rank's shard) and
+    (label -> (xyz, mask, exact cell bits, counted), this rank's shard) and
     each mode, build this rank's step and run it with every kernel's plain
-    version made to raise (on a card): a warm-up whose merged dict is
-    returned; with reps > 0 also reps timed steps (wall ms), one with the
-    group timing its collectives (calls and ms by collective), one more
-    pair of which rank 0 profiles the second (device busy) and one whose
-    kernel launches rank 0 counts and, with capture, whose kernel calls it
-    records; every rank also returns the rows that its halo selections of
-    that step chose, [to the right, to the left] (what it sends its
-    neighbours).  Every rank runs the same steps: the collectives pair up."""
+    version made to raise (on a card): a first step whose merged dict is
+    returned; where counted, one more step whose collective calls (the
+    tracer's collective.* counters) and kernel launches every rank counts,
+    whose kernel calls rank 0 records with capture, and whose halo
+    selections' rows, [to the right, to the left] (what the rank sends its
+    neighbours), every rank returns.  Every rank runs the same steps: the
+    collectives pair up."""
     from pointcloudhookup_tpu_torch.parallel import sharded
     from pointcloudhookup_tpu_torch.parallel.sharded import make_sharded_extract, tile_mesh
 
@@ -1520,13 +1356,11 @@ def sharded_rank(device, runs, params, capture):
     group = tile_mesh()
     modules = wrapper_modules()
     on_card = device.type == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize(device)
+    counters = {**{n: c for n, (_, _, c) in KERNELS.items()},
+                **{n: f"collective.{n}" for n in COLLECTIVES}}
 
     out = {}
-    for label, (xyz_np, mask_np, bits, reps) in runs.items():
+    for label, (xyz_np, mask_np, bits, counted) in runs.items():
         xyz = torch.from_numpy(xyz_np).to(device)
         mask = torch.from_numpy(mask_np).to(device)
         for mode in SHARDED_MODES:
@@ -1536,38 +1370,17 @@ def sharded_rank(device, runs, params, capture):
             with guard:
                 _, merged = step(xyz, mask)
                 res["merged"] = to_host(merged)
-                if reps:
-                    walls = []
-                    for _ in range(reps):
-                        sync()
-                        t0 = time.perf_counter()
-                        step(xyz, mask)
-                        sync()
-                        walls.append((time.perf_counter() - t0) * 1e3)
-                    res["wall_ms"] = walls
-                    group.reset()
-                    group.timing = True
-                    step(xyz, mask)
-                    group.timing = False
-                    res["collective_calls"] = dict(group.calls)
-                    res["collective_ms"] = dict(group.ms)
-                    if group.rank == 0 and on_card:
-                        prof = profile_iteration(lambda: step(xyz, mask))
-                        res["device_ms"] = prof["device_ms"]
-                        res["profile_wall_ms"] = prof["wall_ms"]
-                    else:
-                        step(xyz, mask)
-                        step(xyz, mask)
-                    before = {n: trace.counter(c) for n, (_, _, c) in KERNELS.items()}
+                if counted:
+                    before = {n: trace.counter(c) for n, c in counters.items()}
                     calls, halo = [], []
                     with kernel_calls(calls) if capture and group.rank == 0 \
                             else contextlib.nullcontext():
                         # inside kernel_calls, which rebinds the same name
                         with recording(sharded, "compact_rows_multi", halo):
                             step(xyz, mask)
-                        sync()
-                    res["launches"] = {n: trace.counter(c) - before[n]
-                                       for n, (_, _, c) in KERNELS.items()}
+                    rise = {n: trace.counter(c) - before[n] for n, c in counters.items()}
+                    res["launches"] = {n: rise[n] for n in KERNELS}
+                    res["collective_calls"] = {n: rise[n] for n in COLLECTIVES if rise[n]}
                     # _halo_exchange's compact_rows_multi(sel, bits, halo_cap)
                     res["halo_rows"] = [min(int(args[0].sum()), args[2]) for args, _ in halo]
                     if calls:
@@ -1576,7 +1389,7 @@ def sharded_rank(device, runs, params, capture):
     return out
 
 
-def sharded_phase(dev, smi):
+def sharded_phase(dev):
     """Phase 11: the sharded step (``parallel/sharded.py``) in its three
     modes, through ``parallel.launch.run_ranks`` as a user would start it,
     on a 4,194,304-point corridor cut into four slabs along x, towers on
@@ -1591,10 +1404,8 @@ def sharded_phase(dev, smi):
         bit-identical to rank 0's; every planted tower within TOWER_TOL_M
         (xy) of a member centroid; cells_overflow and halo_overflow 0;
         the halo rows each rank's step selected equal to those derived
-        from the corridor; member counts of 4 ranks and 1 reported;
-        wall ms a step, collective calls and ms a step by collective (4
-        ranks on one card share it: these say nothing of four-card
-        scaling), rank 0's device-busy ms;
+        from the corridor; member counts of 4 ranks and 1 and collective
+        calls a step by collective reported;
       * 4 ranks on the CPU over gloo at 4 x 32,768 rows against the same
         ranks on the card: the same accepted towers and counts, geometry
         within 1 mm.
@@ -1652,24 +1463,15 @@ def sharded_phase(dev, smi):
     if cut < 3:
         failures.append(f"only {cut} towers have member rows in two slabs")
 
-    t0 = time.perf_counter()
     four = run_ranks(sharded_rank, [
-        ({"big": shard((xyz, mask), r, rows) + (bits, SHARDED_REPS),
-          "small": shard(small, r, rows_s) + (small[2], 0)}, params, True)
+        ({"big": shard((xyz, mask), r, rows) + (bits, True),
+          "small": shard(small, r, rows_s) + (small[2], False)}, params, True)
         for r in range(n_r)], backend="gloo", devices=str(dev))
-    t_four = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    one = run_ranks(sharded_rank, [({"big": (xyz, mask, bits, SHARDED_REPS)}, params, False)],
+    one = run_ranks(sharded_rank, [({"big": (xyz, mask, bits, True)}, params, False)],
                     backend="nccl", devices=[str(dev)])[0]
-    t_one = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cpu = run_ranks(sharded_rank, [({"small": shard(small, r, rows_s) + (small[2], 0)},
+    cpu = run_ranks(sharded_rank, [({"small": shard(small, r, rows_s) + (small[2], False)},
                                     params, False) for r in range(n_r)],
                     backend="gloo", devices="cpu")
-    t_cpu = time.perf_counter() - t0
-    print(f"11. launches: {n_r} ranks gloo on {dev} {t_four:.1f} s, 1 rank nccl "
-          f"{t_one:.1f} s, {n_r} ranks gloo on the CPU {t_cpu:.1f} s (process start, kernel "
-          f"load and every step included)")
 
     def towers(merged):
         acc = merged["accepted"]
@@ -1743,7 +1545,6 @@ def sharded_phase(dev, smi):
                                 f"centroids {d.max():.2e} m (bounds 1e-3 m, f32 order)")
         r4 = [four[r][("big", mode)] for r in range(n_r)]
         r1 = one[("big", mode)]
-        wall4 = [float(np.median(r["wall_ms"])) for r in r4]
         halo_read = [r["halo_rows"] for r in r4]
         if halo_read != halo_derived:
             failures.append(f"{mode}: the ranks' halo selections chose {halo_read} rows, "
@@ -1760,10 +1561,7 @@ def sharded_phase(dev, smi):
             worst_centroid_m=worst_cen, centroid_bound_m=worst_cen_tol,
             worst_box_centre_m=worst_box, count_diff_4_vs_1=count_diff, halo_rows=halo_read,
             planted_worst_m=planted_worst, small_card_vs_cpu_m=geo,
-            wall_ms_4=wall4, wall_ms_1=r1["wall_ms"],
-            collective_calls_4=r4[0]["collective_calls"], collective_ms_4=r4[0]["collective_ms"],
-            collective_calls_1=r1["collective_calls"], collective_ms_1=r1["collective_ms"],
-            device_ms_rank0_4=r4[0].get("device_ms"), device_ms_1=r1.get("device_ms"),
+            collective_calls_4=r4[0]["collective_calls"], collective_calls_1=r1["collective_calls"],
             launches_rank0_4=r4[0]["launches"], base_height=float(m4["base_height"]),
         )
         print(f"11. {mode}: 4 ranks {len(c4)} towers, 1 rank {len(c1)}; worst member centroid "
@@ -1773,23 +1571,15 @@ def sharded_phase(dev, smi):
               f"planted worst {planted_worst:.3f} m; small corridor card vs "
               f"CPU {int(acc.sum())} towers, box centre and extent {geo['box']:.2e} m, member "
               f"centroid {geo['centroid']:.2e} m (bound from {geo['centroid_bound']:.2e} m)")
-        print(f"11. {mode}: wall ms a step, 4 ranks on one card (median of {SHARDED_REPS} by "
-              f"rank) {[round(w, 2) for w in wall4]}, 1 rank nccl "
-              f"{[round(w, 2) for w in r1['wall_ms']]}; rank 0 device busy "
-              f"{r4[0].get('device_ms')} ms (1 rank: {r1.get('device_ms')}); collectives a "
-              f"step, rank 0 of 4: calls {r4[0]['collective_calls']} ("
-              f"{sum(r4[0]['collective_calls'].values())}), ms "
-              f"{ {k: round(v, 3) for k, v in r4[0]['collective_ms'].items()} }; 1 rank: calls "
-              f"{r1['collective_calls']} ({sum(r1['collective_calls'].values())}), ms "
-              f"{ {k: round(v, 3) for k, v in r1['collective_ms'].items()} }  [{smi}; 4 ranks "
-              f"share one card: no measure of four-card scaling]")
+        print(f"11. {mode}: collective calls a step, rank 0 of 4 {r4[0]['collective_calls']} "
+              f"({sum(r4[0]['collective_calls'].values())}), 1 rank {r1['collective_calls']} "
+              f"({sum(r1['collective_calls'].values())})")
         print(f"11. {mode}: launches of rank 0's step {r4[0]['launches']}; kernel calls "
               f"captured {len(calls[f'sharded_{mode}'])}")
         print(f"11. {mode}: halo rows sent, read from each rank's step [to the right, to the "
               f"left]: {halo_read} (capacity {cap} a side; derived in numpy from the corridor: "
-              f"{halo_derived})  [{smi}]")
+              f"{halo_derived})")
     results["halo_rows_derived"] = halo_derived
-    results["launch_s"] = dict(four=t_four, one=t_one, cpu=t_cpu)
     if failures:
         raise AssertionError("phase 11: " + "; ".join(failures))
     return results, launches, calls
@@ -1832,7 +1622,7 @@ def keeping(module, attr, calls):
         setattr(module, attr, fn)
 
 
-def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, profile, smi):
+def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules):
     """Phase 12: the viewers, the elevation report and the library functions
     on phase 9's files (the bench tile as a LAS at tm_forward(113.5, 28.2),
     scale 0.01, and the GIM of its 24 towers), every kernel's plain version
@@ -1843,7 +1633,7 @@ def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, p
           viz/render.py's own reader decodes, box-colour pixels in it; then
           render_scene on the card against the CPU on the same points,
           subsample and geometries (pixel-identical, and identical to the
-          CLI's PNG); its wall and device-busy ms;
+          CLI's PNG);
       (b) ``export-scene tile.las scene.ply --towers`` and ``scene.laz``:
           the PLY holds VIEWER_CAP cloud vertices plus 24 x 24 box vertices
           and 288 edges; the .laz read back gives the subsample's xyz (to
@@ -1881,27 +1671,16 @@ def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, p
     from pointcloudhookup_tpu_torch.viz import boxes, export, render
 
     results, launches, calls = {}, {}, {}
-    phase_t0 = time.perf_counter()
 
     def run_cli(argv, what=None):
-        """One command through __main__.main, no plain version allowed: (wall
-        ms, stdout, launches or None)."""
+        """One command through __main__.main, no plain version allowed:
+        (stdout, launches or None)."""
         buf = io.StringIO()
         with no_plain_versions(kernel_modules), contextlib.redirect_stdout(buf):
             reset_counts()
-            t0 = time.perf_counter()
             cli_mod.main(argv)
-            torch.cuda.synchronize(dev)
-            ms = (time.perf_counter() - t0) * 1e3
         counts = read_counts(EXACT_PATH, what) if what else None
-        return ms, buf.getvalue(), counts
-
-    def ms_of(fn):
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize(dev)
-        return (time.perf_counter() - t0) * 1e3, out
+        return buf.getvalue(), counts
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_viewers_") as tmp:
         las_path, gim_path, _, gts, _, _ = gim_files(tmp, pts, centers)
@@ -1912,45 +1691,35 @@ def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, p
         png = os.path.join(tmp, "scene.png")
         geo = []
         with keeping(boxes, "tower_display_geometries", geo):
-            ms, out, launches["viewer_render"] = run_cli(
+            out, launches["viewer_render"] = run_cli(
                 ["render", las_path, png, "--towers", "--device", str(dev)], "(a) render")
         img = render.read_png(png)
         box_px = int((img == BOX_RGB).all(axis=2).sum())
-        print(f"(a) render: wall {ms:.1f} ms; {out.strip().splitlines()[0]}; PNG {img.shape}, "
-              f"{box_px} box-colour pixels")
+        print(f"(a) render: {out.strip().splitlines()[0]}; PNG {img.shape}, {box_px} box-colour "
+              f"pixels")
         if f"{n_towers} tower boxes" not in out or img.shape != (960, 1280, 3) or box_px == 0:
             raise AssertionError(f"(a) render: {out!r}, image {img.shape}, {box_px} box pixels")
         geoms = geo[-1][2]
-        scene_ms, img_g = ms_of(lambda: render.render_scene(world, geoms, device=dev))
+        img_g = render.render_scene(world, geoms, device=dev)
         img_c = render.render_scene(world, geoms, device="cpu")
         differ = int((img_g != img_c).any(axis=2).sum())
-        prof = profile(lambda: render.render_scene(world, geoms, device=dev), top=8)
         print(f"(a) render_scene ({VIEWER_CAP} of {len(world)} points, {len(geoms)} boxes): "
               f"{dev} vs CPU {differ} pixels differ, CLI image "
-              f"{'identical' if np.array_equal(img, img_g) else 'DIFFERENT'}; wall "
-              f"{scene_ms:.1f} ms, one profiled call: wall {prof['wall_ms']:.1f} ms, device "
-              f"busy {prof['device_ms']} ms, idle share {prof['idle_share']}  [{smi}]")
+              f"{'identical' if np.array_equal(img, img_g) else 'DIFFERENT'}")
         if differ or not np.array_equal(img, img_g):
             raise AssertionError(f"(a) render_scene: {differ} pixels differ from the CPU's")
-        results["a"] = dict(cli_wall_ms=ms, box_pixels=box_px, render_scene_wall_ms=scene_ms,
-                            render_scene_profile=dict(wall_ms=prof["wall_ms"],
-                                                      device_ms=prof["device_ms"],
-                                                      idle_share=prof["idle_share"]),
-                            pixels_differ=differ)
+        results["a"] = dict(box_pixels=box_px, pixels_differ=differ)
 
         # ---- (b) export-scene: a PLY with the wireframes, a LAZ of the cloud
-        # (the LAZ codec built first, so that the command's wall leaves out g++)
-        codec_ms, codec = ms_of(get_laz_lib)
-        if codec is None:
+        if get_laz_lib() is None:
             raise AssertionError("(b) the native LAZ codec did not build")
-        print(f"(b) the LAZ codec built with g++ in {codec_ms / 1e3:.1f} s")
         ply, laz = os.path.join(tmp, "scene.ply"), os.path.join(tmp, "scene.laz")
         scene = []
         with keeping(cli_mod, "_towers_and_labels", scene):
-            ms_ply, out_ply, launches["viewer_export_ply"] = run_cli(
+            _, launches["viewer_export_ply"] = run_cli(
                 ["export-scene", las_path, ply, "--towers", "--device", str(dev)],
                 "(b) export-scene .ply")
-            ms_laz, out_laz, launches["viewer_export_laz"] = run_cli(
+            _, launches["viewer_export_laz"] = run_cli(
                 ["export-scene", las_path, laz, "--towers", "--device", str(dev)],
                 "(b) export-scene .laz")
         xyz_s, _, edges_s = export.read_ply_scene(ply)
@@ -1961,24 +1730,21 @@ def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, p
         xyz_err = float(np.abs(back.xyz() - world[idx]).max())
         rgb_ok = all(np.array_equal(back.points[c], cols[:, k].astype(np.uint16) * 257)
                      for k, c in enumerate(("red", "green", "blue")))
-        print(f"(b) export-scene: .ply wall {ms_ply:.1f} ms ({len(xyz_s)} vertices, "
-              f"{len(edges_s)} edges), .laz wall {ms_laz:.1f} ms ({len(back)} points, xyz "
-              f"within {xyz_err:.3g} m of the subsample at scale {back.scales.tolist()}, RGB "
-              f"{'x257 as coloured' if rgb_ok else 'WRONG'})")
+        print(f"(b) export-scene: .ply {len(xyz_s)} vertices, {len(edges_s)} edges; .laz "
+              f"{len(back)} points, xyz within {xyz_err:.3g} m of the subsample at scale "
+              f"{back.scales.tolist()}, RGB {'x257 as coloured' if rgb_ok else 'WRONG'}")
         if (len(xyz_s) != VIEWER_CAP + 24 * n_towers or len(edges_s) != 12 * n_towers
                 or len(back) != VIEWER_CAP or xyz_err > back.scales.max() / 2 + 1e-6
                 or not rgb_ok):
             raise AssertionError(f"(b) export-scene: {len(xyz_s)} vertices, {len(edges_s)} "
                                  f"edges; laz {len(back)} points, {xyz_err} m, rgb {rgb_ok}")
-        results["b"] = dict(codec_build_ms=codec_ms, ply_wall_ms=ms_ply, laz_wall_ms=ms_laz,
-                            vertices=len(xyz_s),
-                            edges=len(edges_s), laz_xyz_err_m=xyz_err)
+        results["b"] = dict(vertices=len(xyz_s), edges=len(edges_s), laz_xyz_err_m=xyz_err)
 
         # ---- (c) viz-export
         js = os.path.join(tmp, "boxes.json")
         ext = []
         with keeping(pipeline, "extract", ext):
-            ms_c, out_c, launches["viewer_viz_export"] = run_cli(
+            out_c, launches["viewer_viz_export"] = run_cli(
                 ["viz-export", las_path, js, "--device", str(dev)], "(c) viz-export")
         with open(js) as f:
             payload = json.load(f)
@@ -1988,13 +1754,13 @@ def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, p
         held = [bool((np.min(b["points"], 0) <= t.center).all()
                      and (t.center <= np.max(b["points"], 0)).all())
                 for b, t in zip(payload, towers_c)]
-        print(f"(c) viz-export: wall {ms_c:.1f} ms, {len(payload)} boxes of "
+        print(f"(c) viz-export: {len(payload)} boxes of "
               f"{sorted({len(b['points']) for b in payload})} points, each holding its tower's "
               f"centre: {all(held)}, equal to the card's towers' geometries: {payload == expect}")
         if (len(payload) != n_towers or any(len(b["points"]) != 24 for b in payload)
                 or not all(held) or payload != expect):
             raise AssertionError("(c) viz-export: the boxes are not the towers'")
-        results["c"] = dict(wall_ms=ms_c, boxes=len(payload))
+        results["c"] = dict(boxes=len(payload))
 
         # ---- (d) elevation-report with a grid and with the empirical N
         a, b, c = GEOID_PLANE
@@ -2007,7 +1773,7 @@ def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, p
         worst = {}
         for label, extra in (("grid", ["--geoid", gtx]), ("empirical", [])):
             csv_path = os.path.join(tmp, f"{label}.csv")
-            ms_d, out_d, _ = run_cli(["elevation-report", gim_path, "--csv", csv_path, "--text",
+            out_d, _ = run_cli(["elevation-report", gim_path, "--csv", csv_path, "--text",
                                       os.path.join(tmp, f"{label}.txt"), "--output-folder",
                                       os.path.join(tmp, f"og_{label}")] + extra)
             with open(csv_path, encoding="utf-8") as f:
@@ -2018,7 +1784,7 @@ def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, p
                       for r, n in zip(rows, n_exp))
             h_err = max(abs(float(r["h_ellipsoid"]) - t["h"]) for r, t in zip(rows, gts))
             worst[label] = err
-            print(f"(d) elevation-report, {label} N: wall {ms_d:.1f} ms, {len(rows)} rows, "
+            print(f"(d) elevation-report, {label} N: {len(rows)} rows, "
                   f"h_orthometric within {err:.3g} m of h - N (bound 1e-4), h within "
                   f"{h_err:.3g} m of the GIM's; {out_d.strip().splitlines()[-1]}")
             if len(rows) != n_towers or err > 1e-4:
@@ -2032,22 +1798,20 @@ def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, p
     xyz_c, mask_c = torch.from_numpy(xyz_np), torch.from_numpy(mask_np)
     max_points = sample.recommend_chunk_size(DOWNSAMPLE_GB)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    draw_ms, bits = ms_of(lambda: sample.random_bits(N_POINTS, gen, device=dev))
-    ds_ms, (out_g, keep_g) = timed(
-        lambda: sample.random_downsample_from_bits(xyz_g, mask_g, bits, max_points), 5)
+    bits = sample.random_bits(N_POINTS, gen, device=dev)
+    out_g, keep_g = sample.random_downsample_from_bits(xyz_g, mask_g, bits, max_points)
     out_c, keep_c = sample.random_downsample_from_bits(xyz_c, mask_c, bits.cpu(), max_points)
     bits_np = bits.cpu().numpy()
     order = np.argsort(np.where(mask_np, bits_np >> 1, 0xFFFFFFFF), kind="stable")[:max_points]
     same = torch.equal(out_g.cpu(), out_c) and torch.equal(keep_g.cpu(), keep_c)
     rows_ok = (int(keep_c.sum()) == max_points and bool(mask_np[order].all())
                and np.array_equal(out_c[:max_points].numpy(), xyz_np[order]))
-    print(f"(e) random_downsample to {max_points} of {int(mask_np.sum())} rows: draw "
-          f"{draw_ms:.2f} ms, keep {ds_ms:.3f} ms a call (events); {dev} == CPU on the same "
-          f"bits: {same}; exactly {int(keep_c.sum())} kept, the stable argsort's rows: "
-          f"{rows_ok}  [{smi}]")
+    print(f"(e) random_downsample to {max_points} of {int(mask_np.sum())} rows: {dev} == "
+          f"CPU on the same bits: {same}; exactly {int(keep_c.sum())} kept, the stable "
+          f"argsort's rows: {rows_ok}")
     if not same or not rows_ok:
         raise AssertionError("(e) random_downsample: card != CPU or wrong rows")
-    results["e"] = dict(downsample=dict(rows=max_points, draw_ms=draw_ms, ms=ds_ms))
+    results["e"] = dict(downsample=dict(rows=max_points))
 
     # RANSAC: the card against the CPU on the same triples
     pick = np.sort(np.random.default_rng(SEED).choice(len(pts), RANSAC_CPU_ROWS, replace=False))
@@ -2088,16 +1852,16 @@ def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, p
                                                                 num_hypotheses=64))):
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        ms, keep = ms_of(fn)
+        keep = fn()
         peak = torch.cuda.max_memory_allocated(dev) - base
         keep = keep.cpu().numpy()
         removed = 1.0 - float(keep[:n_ground].mean())
         tower_kept = [float(keep[s:s + per_tower].mean()) for s in towers_at]
-        ransac[name + "_4M"] = dict(wall_ms=ms, ground_removed=removed,
-                                    tower_kept_min=min(tower_kept), peak_bytes=peak)
-        print(f"(e) {name} on {N_POINTS} rows: wall {ms:.1f} ms, ground rows removed "
-              f"{100 * removed:.2f} %, each tower's rows kept at least "
-              f"{100 * min(tower_kept):.2f} %, peak allocated {peak / 2**20:.1f} MiB  [{smi}]")
+        ransac[name + "_4M"] = dict(ground_removed=removed, tower_kept_min=min(tower_kept),
+                                    peak_bytes=peak)
+        print(f"(e) {name} on {N_POINTS} rows: ground rows removed {100 * removed:.2f} %, "
+              f"each tower's rows kept at least {100 * min(tower_kept):.2f} %, peak allocated "
+              f"{peak / 2**20:.1f} MiB")
         if removed < 0.5 or min(tower_kept) < 0.95 or peak > RANSAC_PEAK_BOUND:
             raise AssertionError(f"(e) {name}: {removed} of the ground removed, a tower "
                                  f"{min(tower_kept)} kept, peak {peak} bytes")
@@ -2120,7 +1884,7 @@ def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, p
     calls["viewer_segments"] = []
     with no_plain_versions(kernel_modules), kernel_calls(calls["viewer_segments"]):
         reset_counts()
-        seg_ms, got = ms_of(lambda: seg_rows(keys_g, vals_g))
+        got = seg_rows(keys_g, vals_g)
         launches["viewer_segments"] = read_counts(("segscan",), "(e) segment rows")
     # the same functions on the same card tensors through segscan's plain
     # version, and the summation bound from plain scans
@@ -2139,14 +1903,11 @@ def viewer_phase(dev, pts, centers, reset_counts, read_counts, kernel_modules, p
               and torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]))
     print(f"(e) segment_sum/max/min_rows over {N_POINTS} rows in {int(start_p.sum())} cells: "
           f"{dev} vs the plain versions: max and min identical, sums within "
-          f"{float(d_sum.max()):.3g} (bound k 2**-23 sum|v|): {seg_ok}; wall {seg_ms:.2f} ms, "
-          f"segscan launches {launches['viewer_segments']['segscan']}")
+          f"{float(d_sum.max()):.3g} (bound k 2**-23 sum|v|): {seg_ok}; segscan launches "
+          f"{launches['viewer_segments']['segscan']}")
     if not seg_ok:
         raise AssertionError("(e) segment rows: the card differs from the plain versions")
-    results["e"]["segments"] = dict(wall_ms=seg_ms, cells=int(start_p.sum()),
-                                    sum_err=float(d_sum.max()))
-    results["wall_s"] = time.perf_counter() - phase_t0
-    print(f"12. phase wall {results['wall_s']:.1f} s  [{smi}]")
+    results["e"]["segments"] = dict(cells=int(start_p.sum()), sum_err=float(d_sum.max()))
     return results, launches, calls
 
 
@@ -2211,45 +1972,36 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     # ---- build the kernels from the checkout's sources
-    lib_path, build_s = build.build(verbose=True)
+    lib_path = build.build(verbose=True)
     build.library()
-    print(f"kernels built in {build_s:.1f} s -> {os.path.relpath(lib_path)}")
+    print(f"kernels built -> {os.path.relpath(lib_path)}")
 
     launches = {}
     logs = []
-    walls = []
     pts, centers = corridor_tile(N_POINTS, SEED)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # ---- the 4M corridor tile, as a user would hand it over: a LAS file
-        t0 = time.perf_counter()
         las_path = os.path.join(tmp, "corridor_4m.las")
         write_las(make_las(pts), las_path)
-        print(f"tile: {len(pts)} points, {len(centers)} towers, LAS written in "
-              f"{time.perf_counter() - t0:.1f} s")
+        print(f"tile: {len(pts)} points, {len(centers)} towers")
 
         # ---- 1. the exact path through the user entry point; the first
-        # call also saves each tower's member points (output_dir), the
-        # second is timed alone
+        # call also saves each tower's member points (output_dir)
         out_dir = os.path.join(tmp, "towers")
         reset_counts()
         for call in range(2):
             logs.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             towers = pipeline.extract(
                 las_path, device=dev, log_callback=logs.append,
                 output_dir=out_dir if call == 0 else None,
             )
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
         launches["exact"] = read_counts(EXACT_PATH, "the two extract() calls")
         centroids = np.array([
             read_las(os.path.join(out_dir, f"tower_{t.label}.las")).xyz().mean(axis=0)
             for t in towers
         ])
     ladder = next(line for line in logs if line.startswith("exact path:"))
-    print(f"extract(): {len(towers)} towers; {ladder}; wall ms "
-          f"first {walls[0]:.1f} (with per-tower LAS output), second {walls[1]:.1f}")
+    print(f"extract(): {len(towers)} towers; {ladder}")
     if len(towers) != len(centers):
         raise AssertionError(f"{len(towers)} towers found, {len(centers)} generated")
     # the member points' centroid locates a tower; the min-area box centre
@@ -2284,16 +2036,12 @@ def main() -> int:
     # ---- 4. the fast path through its user entry point
     params = ExtractParams()
     reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     fast_towers, info = overflow.extract_from_points_resolving(
         pts, params, fast=True, device=dev
     )
-    torch.cuda.synchronize()
-    resolver_ms = (time.perf_counter() - t0) * 1e3
     launches["fast"] = read_counts(FAST_PATH, "extract_from_points_resolving(fast=True)")
     worst_fast = nearest_xy(centers, [t.centroid for t in fast_towers])
-    print(f"resolver (fast): {len(fast_towers)} towers in {resolver_ms:.1f} ms; "
+    print(f"resolver (fast): {len(fast_towers)} towers; "
           f"tiles run {info['tiles_run']}, saturated tiles {info['saturated_tiles']}, "
           f"resolved {info['resolved']}; worst generated-tower distance to the "
           f"nearest centroid {worst_fast:.3f} m, box centre "
@@ -2329,25 +2077,15 @@ def main() -> int:
         precut_div -= 1
     bench = {}
     for div in (precut_div, 0):
-        ms, (stats, accepted, over) = timed(lambda d=div: bench_iter(d), BENCH_ITERS)
+        _, accepted, over = bench_iter(div)
         found = int(accepted.sum())
-        bench[div] = dict(ms=ms, mpts=N_POINTS / ms / 1e3, towers=found,
-                          overflow=float(over))
-        print(f"bench config, precut_div {div}: {ms:.3f} ms/iteration, "
-              f"{N_POINTS / ms / 1e3:.1f} Mpts/s, {found}/{len(centers)} accepted, "
+        bench[div] = dict(towers=found, overflow=float(over))
+        print(f"bench config, precut_div {div}: {found}/{len(centers)} accepted, "
               f"overflow {float(over)}")
         if found != len(centers) or float(over) != 0.0:
             raise AssertionError(f"bench config (precut_div {div}): {found} towers, "
                                  f"overflow {float(over)}")
     launches["bench"] = read_counts(BENCH_PATH, "the bench configuration runs")
-    profile = profile_iteration(lambda: bench_iter(precut_div))
-    busy = (f"device busy {profile['device_ms']:.3f} ms (idle "
-            f"{100 * profile['idle_share']:.1f} %)" if profile["device_ms"] is not None
-            else "device time not measured (the profiler saw none)")
-    print(f"bench config, precut_div {precut_div}, one profiled iteration: wall "
-          f"{profile['wall_ms']:.3f} ms, {busy}; device ms by kernel:")
-    for name, ms in profile["top"]:
-        print(f"  {ms:8.3f}  {name[:110]}")
 
     # ---- 7. the other sort modes in the bench configuration, no pre-cut
     span = xyz_np.max(axis=0) - xyz_np.min(axis=0)
@@ -2373,30 +2111,19 @@ def main() -> int:
         )
         return filter_and_dedup(stats, params.filters), over, hier_over
 
-    sort_modes = {"full": dict(ms=[timed(lambda: bench_iter(0), BENCH_ITERS)[0]])}
+    sort_modes = {}
     for name, kw in modes.items():
         reset_counts()
-        mode_iter(kw)
-        torch.cuda.synchronize()
+        accepted, over, hier_over = mode_iter(kw)
         launches[f"sort_{name}"] = read_counts(SORT_PATH + (SORT_KERNEL[name],),
                                                f"sort_mode {name}")
-        ms, (accepted, over, hier_over) = timed(lambda kw=kw: mode_iter(kw), BENCH_ITERS)
         found = int(accepted.sum())
-        prof = profile_iteration(lambda kw=kw: mode_iter(kw), top=0)
-        sort_modes[name] = dict(ms=ms, towers=found, cells_over=float(over),
-                                hier_runs_over=float(hier_over), device_ms=prof["device_ms"],
-                                idle_share=prof["idle_share"])
-        print(f"sort_mode {name}: {ms:.3f} ms/iteration, {found}/{len(centers)} accepted, "
-              f"cells_over {float(over)}, hier_runs_over {float(hier_over)}; one profiled "
-              f"iteration: device busy {prof['device_ms']} ms, idle share {prof['idle_share']}")
+        sort_modes[name] = dict(towers=found, cells_over=float(over),
+                                hier_runs_over=float(hier_over))
+        print(f"sort_mode {name}: {found}/{len(centers)} accepted, cells_over {float(over)}, "
+              f"hier_runs_over {float(hier_over)}")
         if found != len(centers) or float(over) != 0.0:
             raise AssertionError(f"sort_mode {name}: {found} towers, cells_over {float(over)}")
-    sort_modes["full"]["ms"].append(timed(lambda: bench_iter(0), BENCH_ITERS)[0])
-    prof = profile_iteration(lambda: bench_iter(0), top=0)
-    sort_modes["full"].update(device_ms=prof["device_ms"], idle_share=prof["idle_share"])
-    print(f"sort_mode full (no pre-cut), before and after the modes: "
-          f"{sort_modes['full']['ms']} ms/iteration; one profiled iteration: device busy "
-          f"{prof['device_ms']} ms, idle share {prof['idle_share']}")
 
     # ---- 6. 131,072-row pre-cut tile: GPU vs the plain versions on the CPU
     n6 = 131072
@@ -2436,31 +2163,30 @@ def main() -> int:
     # resolver, grid_dbscan, and GPU == CPU on entry()'s batch and a
     # per-chunk tile
     modular, modular_launches, modular_calls = modular_phase(
-        dev, pts, centers, reset_counts, read_counts, profile=profile_iteration)
+        dev, pts, centers, reset_counts, read_counts)
     launches.update(modular_launches)
 
     # ---- 9. the GIM workflow: run-all, compress GPU == CPU, reproject
     kernel_modules = wrapper_modules()
     gim, launches["gim_run_all"], compress_scan = gim_phase(
-        dev, pts, centers, reset_counts, read_counts, kernel_modules, profile_iteration)
+        dev, pts, centers, reset_counts, read_counts, kernel_modules)
 
     # ---- 10. registration (correct --icp, batched_icp, register) and
     # tile streaming (stream-extract at config 5's scale), card vs CPU
     phase10, stream_launches, stream_calls = registration_streaming_phase(
-        dev, pts, centers, reset_counts, read_counts, counts_now, kernel_modules,
-        profile_iteration)
+        dev, pts, centers, reset_counts, read_counts, counts_now, kernel_modules)
     launches.update(stream_launches)
 
     # ---- 11. the sharded step over torch.distributed: 4 ranks on the card
     # (gloo) against 1 rank (nccl), and the card against the CPU
-    sharded, sharded_launches, sharded_calls = sharded_phase(dev, smi)
+    sharded, sharded_launches, sharded_calls = sharded_phase(dev)
     launches.update(sharded_launches)
 
     # ---- 12. the viewers (render, export-scene, viz-export), the elevation
     # report and the library functions (random_downsample, RANSAC, segment
     # rows) on phase 9's files and the 4M tile
     viewers, viewer_launches, viewer_calls = viewer_phase(
-        dev, pts, centers, reset_counts, read_counts, kernel_modules, profile_iteration, smi)
+        dev, pts, centers, reset_counts, read_counts, kernel_modules)
     launches.update(viewer_launches)
 
     # ---- 3. each kernel vs its plain version at the paths' shapes.
@@ -2483,14 +2209,10 @@ def main() -> int:
     results = {name: [] for name in KERNELS}
 
     def case(name, label, kernel_fn, plain_fn, compare, *, nbytes, flops=0.0,
-             library_fn=None, reps=5, plain_reps=3, pairs=None, all_pairs=None):
+             library_fn=None, pairs=None, all_pairs=None):
         if pairs is not None:  # a pair kernel: 9 operations a pair within eps
             flops = 9.0 * pairs
-        ms, got = timed(kernel_fn, reps)
-        plain_ms, ref = timed(plain_fn, plain_reps)
-        lib_ms = timed(library_fn, reps)[0] if library_fn is not None else None
-        err = compare(got, ref)
-        host_ms = issue_ms(kernel_fn, reps)
+        err = compare(kernel_fn(), plain_fn())
         prof = profile_iteration(kernel_fn, top=50)
         lib_dev = profile_iteration(library_fn)["device_ms"] if library_fn is not None else None
         ran = [(k.replace("(anonymous namespace)::", "").split("(")[0], v)
@@ -2498,17 +2220,15 @@ def main() -> int:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOPS * 1e3
         entry = dict(
-            case=label, ms=ms, device_ms=prof["device_ms"], host_ms=host_ms, plain_ms=plain_ms,
-            library_ms=lib_ms, library_device_ms=lib_dev, max_abs_err=err, bytes=nbytes, flops=flops,
-            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-            device_kernels=ran, device_launches=prof["counts"], pairs=pairs, all_pairs=all_pairs,
+            case=label, device_ms=prof["device_ms"], library_device_ms=lib_dev, max_abs_err=err,
+            bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", device_kernels=ran,
+            device_launches=prof["counts"], pairs=pairs, all_pairs=all_pairs,
         )
         results[name].append(entry)
-        lib = (f"  library {lib_ms:8.3f} ms (device {lib_dev})" if lib_ms is not None
-               else "")
-        dev = f"{prof['device_ms']:.4f}" if prof["device_ms"] is not None else "not measured"
-        print(f"{name:16s} {label:46s} kernel {ms:8.3f} ms  device {dev} ms  host "
-              f"{host_ms:.4f} ms  plain {plain_ms:9.3f} ms{lib}  bound {max(t_bytes, t_ops):.4f} "
+        lib = f"  library device {lib_dev} ms" if library_fn is not None else ""
+        dms = f"{prof['device_ms']:.4f}" if prof["device_ms"] is not None else "not measured"
+        print(f"{name:16s} {label:46s} device {dms} ms{lib}  bound {max(t_bytes, t_ops):.4f} "
               f"ms  max|diff| {err}"
               + ("" if pairs is None else f"  pairs within eps {pairs} (all-pairs count "
                  f"{all_pairs}, bound then {9.0 * all_pairs / F32_FLOPS * 1e3:.4f} ms)"))
@@ -2558,8 +2278,7 @@ def main() -> int:
 
     # one exact graph run, profiled: device ms by kernel
     graph = profile_iteration(lambda: frontend_exact.exact_extract_graph(xyz, mask, params, **kw))
-    print(f"one exact graph run: wall {graph['wall_ms']:.3f} ms, device busy "
-          f"{graph['device_ms']} ms; device ms by kernel:")
+    print(f"one exact graph run: device {graph['device_ms']} ms; device ms by kernel:")
     for name, ms in graph["top"]:
         print(f"  {ms:8.3f}  {name[:110]}")
 
@@ -2624,11 +2343,9 @@ def main() -> int:
     ones_c = torch.ones(ccap, dtype=torch.float32, device=dev)
     iota_c = torch.arange(ccap, dtype=torch.int32, device=dev)
     converge_cases = [
-        (f"core table {ccap}, min_points 0",
-         (core_centers, ones_c, slot_ok, iota_c), 0.0, {}),
+        (f"core table {ccap}, min_points 0", (core_centers, ones_c, slot_ok, iota_c), 0.0),
         (f"full table {m}, min_points {params.cluster.min_points}",
-         (centers_t, ccount, alive, iota_m), float(params.cluster.min_points),
-         dict(plain_reps=1)),
+         (centers_t, ccount, alive, iota_m), float(params.cluster.min_points)),
     ]
     # the fast path's own call: the bench configuration's cell table
     # (fused_downsample_ground_cluster below core_flood_cells)
@@ -2639,14 +2356,14 @@ def main() -> int:
         f"bench m-table {mf} ({int(alive_f.sum())} live), min_points "
         f"{params.cluster.min_points}",
         (centers_f, ccount_f, alive_f, torch.arange(mf, dtype=torch.int32, device=dev)),
-        float(params.cluster.min_points), {}))
-    for label, args, mp, extra in converge_cases:
+        float(params.cluster.min_points)))
+    for label, args, mp in converge_cases:
         pairs, all_pairs, nc = converge_pairs(args[0], args[1], args[2], mp)
         case("cluster_converge", f"{label}, {nc} core",
              lambda a=args, mp=mp: cluster_converge.cluster_cells(*a, eps2, mp),
              lambda a=args, mp=mp: cluster_converge.cluster_cells_plain(*a, eps2, mp),
              exact("cluster_converge"), nbytes=args[0].shape[0] * (12 + 4 + 1 + 4 + 4 + 4),
-             pairs=pairs, all_pairs=all_pairs, **extra)
+             pairs=pairs, all_pairs=all_pairs)
 
     # obb_accum over the cell-sorted rows and their labels
     full = frontend_exact.exact_extract_graph(xyz, mask, params, **kw)
@@ -2765,12 +2482,6 @@ def main() -> int:
              lambda v=vals, f=flags: segscan.segmented_scan(v, f, "add", True),
              lambda v=vals, f=flags: segscan.segmented_scan_plain(v, f, "add", True),
              exact("segscan"), nbytes=vals.shape[0] * (4 + 1 + 4))
-    # an unsegmented one-pass scan of the same int32 [N], for scale only (it
-    # computes another function, so it is not the library column)
-    cum_ms = timed(lambda: torch.cumsum(vals, 0, dtype=torch.int32), 5)[0]
-    cum_dev = profile_iteration(lambda: torch.cumsum(vals, 0, dtype=torch.int32))["device_ms"]
-    print(f"torch.cumsum over the same i32[{vals.shape[0]}] (not segmented, for scale): "
-          f"{cum_ms:.4f} ms, device {cum_dev} ms")
 
     def cmp_sums(vals, flags, reverse, kernel_fn):
         # float32 sums in the kernel's fixed order: two calls give the same
@@ -2796,15 +2507,13 @@ def main() -> int:
     scan4 = lambda: segscan.segmented_scan(vals4, flags4, "add", True)  # noqa: E731
     case("segscan", f"centroid voxels: f32 add reverse [{vals4.shape[0]}, {vals4.shape[1]}]",
          scan4, lambda: segscan.segmented_scan_plain(vals4, flags4, "add", True),
-         cmp_sums(vals4, flags4, True, scan4), nbytes=vals4.shape[0] * (16 + 1 + 16),
-         plain_reps=1)
+         cmp_sums(vals4, flags4, True, scan4), nbytes=vals4.shape[0] * (16 + 1 + 16))
     # compress's call (phase 9 (a)): the voxel sums of four float32 columns
     vals_c, flags_c, _, _ = compress_scan
     scan_c = lambda: segscan.segmented_scan(vals_c, flags_c, "add", True)  # noqa: E731
     case("segscan", f"compress (9a): f32 add reverse [{vals_c.shape[0]}, {vals_c.shape[1]}]",
          scan_c, lambda: segscan.segmented_scan_plain(vals_c, flags_c, "add", True),
-         cmp_sums(vals_c, flags_c, True, scan_c), nbytes=vals_c.shape[0] * (16 + 1 + 16),
-         plain_reps=1)
+         cmp_sums(vals_c, flags_c, True, scan_c), nbytes=vals_c.shape[0] * (16 + 1 + 16))
     # segscan and compact_indices: one kernel launch a call, besides a memset
     for name in ("segscan", "compact_indices"):
         for c in results[name]:
@@ -2867,8 +2576,7 @@ def main() -> int:
     }
     print(f"mergesort at {N_POINTS} rows, device ms: block sort "
           f"{mergesort_parts['block_sort_ms']:.4f}, 9 merge rounds "
-          f"{mergesort_parts['merge_rounds_ms']:.4f}; kernel {merge_case['ms']:.4f} ms against "
-          f"torch.sort of the packed keys {merge_case['library_ms']:.4f} ms")
+          f"{mergesort_parts['merge_rounds_ms']:.4f}")
     rng3 = np.random.default_rng(3)
     na = 1 << 20
     half = np.arange(na // 2)
@@ -2902,7 +2610,7 @@ def main() -> int:
              lambda a=args: cluster_converge.cluster_cells(*a),
              lambda a=args: cluster_converge.cluster_cells_plain(*a),
              exact("cluster_converge"), nbytes=args[0].shape[0] * (12 + 4 + 1 + 4 + 4 + 4),
-             pairs=pairs, all_pairs=all_pairs, plain_reps=1)
+             pairs=pairs, all_pairs=all_pairs)
     # the same dbscan call on rows in input order: the kernel culls by row
     # boxes, which then span the tile.  labels0 carries the input row, so
     # the result is the same, permuted
@@ -2918,34 +2626,23 @@ def main() -> int:
     got_u = cluster_converge.cluster_cells(*args_u)
     require_equal("cluster_converge (input order)", [v[src] for v in got_u],
                   list(cluster_converge.cluster_cells(*args)))
-    order_ms = {}
-    for label, a in (("cell-sorted", args), ("input order", args_u)):
-        ms_o = timed(lambda a=a: cluster_converge.cluster_cells(*a), 5)[0]
-        order_ms[label] = dict(ms=ms_o, device_ms=profile_iteration(
-            lambda a=a: cluster_converge.cluster_cells(*a))["device_ms"])
-    print(f"cluster_converge on dbscan's rows (8a), M={args[0].shape[0]}: {order_ms} "
-          f"(event ms of 5 calls / device ms of one)")
+    print(f"cluster_converge on dbscan's rows (8a), M={args[0].shape[0]}, in input order: "
+          f"the cell-sorted result, permuted")
     for (vals, flags, op, rev), _ in modular_calls["grid_scans"][-2:]:
         case("segscan", f"grid (8c): {op} {'reverse' if rev else 'forward'} i32[{vals.shape[0]}]",
              lambda v=vals, f=flags, o=op, r=rev: segscan.segmented_scan(v, f, o, r),
              lambda v=vals, f=flags, o=op, r=rev: segscan.segmented_scan_plain(v, f, o, r),
              exact("segscan"), nbytes=vals.shape[0] * (4 + 1 + 4))
     # grid_dbscan makes each masked row (sorted last) a segment of its own;
-    # the same scans with those rows as one segment give the same outputs:
-    # both timed here, in one process
+    # the same scans with those rows as one segment give the same outputs
     grid_scans = [args for args, _ in modular_calls["grid_scans"][-2:]]
     dead = grid_scans[0][0] == 0  # the add scan's values: 1 on live rows
     one_dead_segment = grid_scans[0][1] & ~(dead & torch.roll(dead, 1))
     for vals, flags, op, rev in grid_scans:
-        ab = {}
-        for label, f in (("dead rows each a segment", flags),
-                         ("dead rows one segment", one_dead_segment)):
-            fn = lambda v=vals, f=f, o=op, r=rev: segscan.segmented_scan(v, f, o, r)
-            ab[label] = (timed(fn, 5)[0], profile_iteration(fn)["device_ms"])
         require_equal("segscan (dead-row flags)", [segscan.segmented_scan(
             vals, one_dead_segment, op, rev)], [segscan.segmented_scan(vals, flags, op, rev)])
-        print(f"segscan grid (8c) {op} {'reverse' if rev else 'forward'}, "
-              f"{int(dead.sum())} dead rows: (event ms of 5 calls, device ms of one) {ab}")
+        print(f"segscan grid (8c) {op} {'reverse' if rev else 'forward'}, {int(dead.sum())} "
+              f"dead rows: the same outputs with them as one segment")
     (keep_g, chans_g, m_g), _ = modular_calls["grid_pack"][-1]
     stacked_g = torch.stack(chans_g)
     case("compactrows",
@@ -3002,7 +2699,7 @@ def main() -> int:
                      lambda a=args, k_=kw: cluster_converge.cluster_cells(*a, **k_),
                      lambda a=args, k_=kw: cluster_converge.cluster_cells_plain(*a, **k_),
                      exact(name), nbytes=args[0].shape[0] * (12 + 4 + 1 + 4 + 4 + 4),
-                     pairs=pairs, all_pairs=all_pairs, plain_reps=1)
+                     pairs=pairs, all_pairs=all_pairs)
             elif name == "obb_accum":
                 x_t, y_t, z_t, lab_t = args
                 k_t, a_t = kw["max_clusters"], kw["num_angles"]
@@ -3053,7 +2750,7 @@ def main() -> int:
     for name, (source, replaces, _) in KERNELS.items():
         cases = results[name]
         by_path = {path: counts[name] for path, counts in launches.items()}
-        lib = [c["library_ms"] for c in cases if c["library_ms"] is not None]
+        lib = [c["library_device_ms"] for c in cases if c["library_device_ms"] is not None]
         worst = max(cases, key=lambda c: c["bound_ms"])
         entries.append(dict(
             name=name,
@@ -3063,22 +2760,17 @@ def main() -> int:
             launches=sum(by_path.values()),
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in cases),
-            ms=sum(c["ms"] for c in cases),
             device_ms=(None if any(c["device_ms"] is None for c in cases)
                        else sum(c["device_ms"] for c in cases)),
-            plain_ms=sum(c["plain_ms"] for c in cases),
             bound_ms=sum(c["bound_ms"] for c in cases),
             bound_by=worst["bound_by"],
-            library_ms=sum(lib) if lib else None,
+            library_device_ms=sum(lib) if lib else None,
             cases=cases,
         ))
     print(json.dumps(dict(
-        card=smi, build_s=build_s, extract_ms=walls[1], extract_first_ms=walls[0],
-        resolver_fast_ms=resolver_ms, resolver_info=info,
-        bench_precut_div=precut_div, bench=bench, bench_profile=profile,
+        card=smi, resolver_info=info, bench_precut_div=precut_div, bench=bench,
         sort_modes=sort_modes, mergesort_parts=mergesort_parts, modular=modular,
-        cluster_converge_row_order=order_ms, gim_workflow=gim,
-        registration_streaming=phase10, sharded=sharded, viewers=viewers,
+        gim_workflow=gim, registration_streaming=phase10, sharded=sharded, viewers=viewers,
     )))
     print(json.dumps(dict(kernels=entries)))
     print(json.dumps(dict(

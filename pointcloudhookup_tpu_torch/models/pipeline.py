@@ -84,13 +84,8 @@ def compress(
         rep.progress(10)
 
         with trace.span("compress.prepare"):
-            origin = pts.mean(axis=0) if len(pts) else np.zeros(3)
-            centered = (pts - origin).astype(np.float32)
             cap = round_up(max(len(pts), 1), chunk_size if per_chunk else 1024)
-            xyz = np.zeros((cap, 3), np.float32)
-            xyz[: len(pts)] = centered
-            mask = np.zeros(cap, bool)
-            mask[: len(pts)] = True
+            origin, xyz, mask, _ = _centre_tile(pts, cap)
             xyz_t, mask_t = _upload(xyz, device), _upload(mask, device)
         with trace.span("compress.voxel"):
             if per_chunk:
@@ -327,10 +322,9 @@ def extract_from_points(
 
 def _prepare_tile(points, params: ExtractParams, capacity: Optional[int]):
     """A tile's host preparation: (origin f64[3], xyz f32[cap, 3] centred
-    on it with zero padding rows, mask bool[cap], the exact path's plan).
-    Where ``native.prepare_tile`` takes the rows (a C-ordered f64 array
-    with no NaN or inf) two native passes prepare it, counted as
-    ``extract.prepare.native``; otherwise numpy does, with the same bits."""
+    on it with zero padding rows, mask bool[cap], the exact path's plan),
+    through ``_centre_tile``; a tile the native passes prepared counts as
+    ``extract.prepare.native``."""
     points = np.asarray(points, np.float64).reshape(-1, 3)
     n = len(points)
     if capacity is not None:
@@ -341,6 +335,20 @@ def _prepare_tile(points, params: ExtractParams, capacity: Optional[int]):
         cap = round_up(max(n, 1), 32768)
     else:
         cap = round_up(max(n, 1), 1024)
+    origin, xyz, mask, span = _centre_tile(points, cap)
+    if span is not None:
+        trace.count("extract.prepare.native")
+    return origin, xyz, mask, _exact_fast_plan(points, params, cap, span)
+
+
+def _centre_tile(points: np.ndarray, cap: int):
+    """(origin f64[3], xyz f32[cap, 3], mask bool[cap], span f64[3] or None)
+    of f64 rows [N, 3]: the origin is their mean, xyz the rows' f32 ``points
+    - origin`` followed by zero rows, mask True on the N rows.  Where
+    ``native.prepare_tile`` takes the rows (a C-ordered f64 array with no
+    NaN or inf) two native passes give them, with the span ``max - min``;
+    otherwise numpy does, with the same bits, and the span is None."""
+    n = len(points)
     prepared = prepare_tile(points, cap)
     if prepared is None:
         origin = points.mean(axis=0) if n else np.zeros(3)
@@ -348,12 +356,11 @@ def _prepare_tile(points, params: ExtractParams, capacity: Optional[int]):
         xyz[:n] = (points - origin).astype(np.float32)
         span = None
     else:
-        trace.count("extract.prepare.native")
         origin, xyz, span = prepared
     mask = np.empty(cap, bool)
     mask[:n] = True
     mask[n:] = False
-    return origin, xyz, mask, _exact_fast_plan(points, params, cap, span)
+    return origin, xyz, mask, span
 
 
 def _extract_stats_modular(xyz: np.ndarray, mask: np.ndarray, params: ExtractParams,

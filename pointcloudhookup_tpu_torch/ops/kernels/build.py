@@ -24,7 +24,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -129,19 +128,17 @@ def _run(cmd: list[str]) -> subprocess.CompletedProcess:
     return res
 
 
-def build(verbose: bool = False) -> tuple[str, float]:
+def build(verbose: bool = False) -> str:
     """Compile the library if this digest has none yet: one ``nvcc -c``
-    per source, all at once, then one link.  Returns (path, seconds spent
-    compiling; 0.0 when it was already built).  verbose adds
-    ``-Xptxas -v`` and prints the compiler's report."""
+    per source, all at once, then one link.  Returns its path.  verbose
+    adds ``-Xptxas -v`` and prints the compiler's report."""
     out = library_path()
     if os.path.exists(out):
-        return out, 0.0
+        return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
     extra = ["-Xptxas", "-v"] if verbose else []
-    t0 = time.perf_counter()
     objs, cmds = [], []
     for src in (p for p in sources() if p.endswith(".cu")):
         obj = os.path.join(os.path.dirname(out), f"{os.path.basename(src)}.{tag}.o")
@@ -152,7 +149,6 @@ def build(verbose: bool = False) -> tuple[str, float]:
         with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
             results = list(pool.map(_run, cmds))
         _run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs])
-        secs = time.perf_counter() - t0
         os.replace(tmp, out)
     finally:
         for path in (*objs, tmp):
@@ -161,7 +157,7 @@ def build(verbose: bool = False) -> tuple[str, float]:
     if verbose:
         for res in results:
             print(res.stdout + res.stderr)
-    return out, secs
+    return out
 
 
 def library() -> ctypes.CDLL:
@@ -169,7 +165,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path, _ = build()
+            path = build()
             lib = ctypes.CDLL(path)
             for name, (res, args) in _SIGNATURES.items():
                 fn = getattr(lib, name)

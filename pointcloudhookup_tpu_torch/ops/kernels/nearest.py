@@ -3,9 +3,23 @@ moved row's nearest valid destination row.
 
 No TPU kernel counterpart: the JAX module's ``_nearest`` is plain jnp.  The
 CUDA kernel is ``csrc/nearest.cu`` (a memset, the sweep, a finishing pass);
-the plain PyTorch version is ``ops/registration.py``'s ``_moved`` and
-``_nearest`` unchanged, what CPU tensors take and what the kernel is held
-to, bit for bit, on the card.  The kernel builds no [B, rows, M] tensor.
+the plain PyTorch version is ``_moved``, ``_nearest`` and ``_gather_rows``
+below, what CPU tensors take and what the kernel is held to, bit for bit,
+on the card.  The kernel builds no [B, rows, M] tensor.
+
+The search departs from the JAX module's |a|^2 + |b|^2 - 2 a.b: it takes
+d^2 = |a - b|^2 directly (differences, a square and two fused
+multiply-adds), then the argmin.  At a tower's reach (|b|^2 up to ~500
+m^2) the expanded form rounds d^2 by ~3e-5 m^2, more than the gap between
+the two nearest member rows of many frame rows; the swaps that follow sent
+6 of 100 towers' refinements off the float64 ICP, one by 0.43 m, on an
+H100 (50-tower sections of ~12,400-row towers).  The direct form rounds
+d^2 by a few ulp of d^2 itself: about 0.3 % of towers part, by 2-106 mm
+(90 sections), moved by the float32 rounding of the moved rows alone.
+``tests/test_torch_registration.py::test_nearest_matches_jax`` holds the
+index to the JAX module's and d^2 to the exact value.  The moved rows are
+rounded as XLA:CPU rounds the JAX module's (``_dot3``: fused
+multiply-adds).
 
 How the kernel spreads the work follows B, N and M alone (``plan``): a
 thread holds 2, 3 or 4 frame rows, a warp 32 times that, a block up to
@@ -21,6 +35,7 @@ import functools
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import build
+from pointcloudhookup_tpu_torch.ops.morton import fma_f32
 from pointcloudhookup_tpu_torch.utils import trace
 
 _ROWS = (2, 3, 4)  # frame rows a thread holds: the kernel's instantiations
@@ -28,8 +43,10 @@ _BLOCK_WARPS = 8
 _WARPS_PER_SM = 32  # resident warps aimed at on each SM
 _MIN_SLICE_ROWS = 64  # the fewest destination rows a warp walks in its block's range
 _MAX_SPLIT = 65535  # the grid's y extent
-
-launches = 0  # calls that launched the kernel
+# the largest [B, rows, M] d^2 tile the plain version builds: 2**25
+# elements, 128 MiB in float32, which bounds its memory on the CPU, where it
+# runs (at most three such tensors are alive at once)
+NEAREST_TILE_ELEMS = 1 << 25
 
 
 def plan(b: int, n: int, m: int, sms: int) -> tuple[int, int, int, int]:
@@ -63,8 +80,8 @@ def nearest_moved(src, src_mask, dst, dst_mask, r, t):
 
     src float32[B, N, 3] / src_mask bool[B, N], dst float32[B, M, 3] /
     dst_mask bool[B, M], r float32[B, 3, 3], t float32[B, 3].  Each launch
-    adds one to ``launches`` and to the counter ``icp.nearest_kernel``; a
-    call with no frame rows launches nothing."""
+    adds one to the counter ``icp.nearest_kernel``; a call with no frame
+    rows launches nothing."""
     if src.device.type == "cpu":
         return nearest_moved_plain(src, src_mask, dst, dst_mask, r, t)
     build.require_cuda("nearest_moved", src, src_mask, dst, dst_mask, r, t)
@@ -99,15 +116,70 @@ def nearest_moved(src, src_mask, dst, dst_mask, r, t):
         idx.data_ptr(), d2.data_ptr(), matched.data_ptr(), build.stream(dev),
     )
     build.check(rc, "nearest_moved")
-    global launches
-    launches += 1
     trace.count("icp.nearest_kernel")
     return idx, d2, matched
 
 
 def nearest_moved_plain(src, src_mask, dst, dst_mask, r, t):
     """Plain PyTorch version: same contract."""
-    from pointcloudhookup_tpu_torch.ops import registration
+    idx, d2 = _nearest(_moved(src, r, t), src_mask, dst, dst_mask)
+    return idx, d2, _gather_rows(dst, idx)
 
-    idx, d2 = registration._nearest(registration._moved(src, r, t), src_mask, dst, dst_mask)
-    return idx, d2, registration._gather_rows(dst, idx)
+
+def _dot3(a, b):
+    """Three-term float32 dot a0 b0 + a1 b1 + a2 b2 of broadcastable
+    tensors, rounded as XLA:CPU computes the JAX module's squared norms and
+    its Eigen dot: fma(a2, b2, fma(a1, b1, a0 b0))."""
+    return fma_f32(a[2], b[2], fma_f32(a[1], b[1], a[0] * b[0]))
+
+
+def _cols(x):
+    return [x[..., j] for j in range(3)]
+
+
+def _moved(src, r, t):
+    """src @ R^T (Eigen's fused dot), then + t: src float32[B, N, 3], r
+    float32[B, 3, 3], t float32[B, 3]."""
+    s = [c[..., None] for c in _cols(src)]  # [B, N, 1] each
+    return _dot3(s, [r[:, None, :, j] for j in range(3)]) + t[:, None, :]
+
+
+def _nearest(src, src_mask, dst, dst_mask):
+    """For each source row, the index and squared distance of its nearest
+    valid destination row.
+
+    src float32[B, N, 3] / src_mask bool[B, N], dst float32[B, M, 3] /
+    dst_mask bool[B, M].  d^2 = |a - b|^2, summed over the axes with fused
+    multiply-adds; masked destinations are +inf, and masked sources report
+    +inf (their index is still the argmin over the valid destinations).
+    Rows go in the fewest tiles that keep a [B, rows, M] tile within
+    NEAREST_TILE_ELEMS, split evenly: a tile's bytes then follow M smoothly,
+    where the most rows a tile holds jumps by a whole row of [B, M] as M
+    crosses a multiple (the peak memory of ICP batches whose largest cloud
+    differs by a few rows moved 1.4 %)."""
+    b, n, _ = src.shape
+    m = dst.shape[1]
+    most = max(1, NEAREST_TILE_ELEMS // max(b * m, 1))
+    tiles = max(1, -(-n // most))
+    tile_rows = max(1, -(-n // tiles))
+    dmask = dst_mask[:, None, :]
+    d = [c[:, None, :] for c in _cols(dst)]  # [B, 1, M] each
+    idx = torch.empty((b, n), dtype=torch.int64, device=src.device)
+    best = torch.empty((b, n), dtype=src.dtype, device=src.device)
+    for r0 in range(0, n, tile_rows):
+        s = [c[..., None] for c in _cols(src[:, r0:r0 + tile_rows])]  # [B, rows, 1]
+        e = s[0] - d[0]
+        d2 = e * e
+        for j in (1, 2):
+            e = s[j] - d[j]
+            d2 = fma_f32(e, e, d2)
+        d2 = torch.where(dmask, d2, torch.inf)
+        i = torch.argmin(d2, dim=-1)
+        idx[:, r0:r0 + tile_rows] = i
+        best[:, r0:r0 + tile_rows] = torch.gather(d2, -1, i[..., None])[..., 0]
+    return idx, torch.where(src_mask, best, torch.inf)
+
+
+def _gather_rows(x, idx):
+    """x[b, idx[b, n]] for x [B, M, 3], idx [B, N]."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))

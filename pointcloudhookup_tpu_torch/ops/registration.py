@@ -7,28 +7,12 @@ padded to fixed N and M with validity masks, and padding enters the
 solve as the JAX module's does: a padded source row keeps weight 1e-9 in
 Kabsch and the index of the real destination row nearest its position.
 
-The products are written out elementwise in float32 (no matmul), so no
-TF32 path can touch them; Kabsch's moved rows are rounded as XLA:CPU rounds
-the JAX module's (``_dot3``: fused multiply-adds, float32 on the card).
-The nearest-neighbour search departs from the JAX module's |a|^2 + |b|^2 -
-2 a.b: it takes d^2 = |a - b|^2 directly (differences, a square and two
-fused multiply-adds), then the argmin.  At a tower's reach (|b|^2 up to
-~500 m^2) the expanded form rounds d^2 by ~3e-5 m^2, more than the gap
-between the two nearest member rows of many frame rows; the swaps that
-follow sent 6 of 100 towers' refinements off the float64 ICP, one by
-0.43 m, on an H100 (50-tower sections of ~12,400-row towers).  The direct
-form rounds d^2 by a few ulp of d^2 itself: about 0.3 % of towers part,
-by 2-106 mm (90 sections), moved by the float32 rounding of the moved rows
-alone.  ``tests/test_torch_registration.py::test_nearest_matches_jax``
-holds the index to the JAX module's and d^2 to the exact value.
-A sweep (the frame rows moved by R and t, then each one's nearest valid
-destination row) is ``ops/kernels/nearest.py::nearest_moved``: on the card
-the hand-written kernel ``csrc/nearest.cu``, which builds no [B, rows, M]
-tensor and gives ``_moved`` and ``_nearest``'s index and d^2 bit for bit;
-on the CPU those two functions.  ``_nearest`` runs in tiles of source
-rows, so no [B, rows, M] tensor holds more than ``NEAREST_TILE_ELEMS``
-elements; each row's d^2 and argmin are those of the untiled form.  The
-3x3 solve is ``torch.linalg.svd`` on the tensors' device.
+Kabsch's products are written out elementwise in float32 (no matmul), so
+no TF32 path can touch them.  A sweep (the frame rows moved by R and t,
+then each one's nearest valid destination row) is
+``ops/kernels/nearest.py::nearest_moved``: the hand-written kernel
+``csrc/nearest.cu`` on the card, its plain version on the CPU.  The 3x3
+solve is ``torch.linalg.svd`` on the tensors' device.
 
 Spans and counters (``utils/trace.py``): ``register_tower_pairs`` opens
 ``icp.pack`` round its padding, and ``solve_pairs`` ``icp.upload``,
@@ -43,24 +27,8 @@ import numpy as np
 import torch
 
 from pointcloudhookup_tpu_torch.ops.kernels import nearest
-from pointcloudhookup_tpu_torch.ops.morton import fma_f32
 from pointcloudhookup_tpu_torch.state import to_numpy
 from pointcloudhookup_tpu_torch.utils import trace
-
-# the largest [B, rows, M] d^2 tile _nearest builds: 2**25 elements, 128 MiB
-# in float32; at most three such tensors are alive at once
-NEAREST_TILE_ELEMS = 1 << 25
-
-
-def _dot3(a, b):
-    """Three-term float32 dot a0 b0 + a1 b1 + a2 b2 of broadcastable
-    tensors, rounded as XLA:CPU computes the JAX module's squared norms and
-    its Eigen dot: fma(a2, b2, fma(a1, b1, a0 b0))."""
-    return fma_f32(a[2], b[2], fma_f32(a[1], b[1], a[0] * b[0]))
-
-
-def _cols(x):
-    return [x[..., j] for j in range(3)]
 
 
 def kabsch(src, dst, weights):
@@ -83,54 +51,6 @@ def kabsch(src, dst, weights):
     r = (v * flip[..., None, :]) @ ut
     t = mu_d - (r * mu_s[..., None, :]).sum(dim=-1)
     return r, t
-
-
-def _moved(src, r, t):
-    """src @ R^T (Eigen's fused dot), then + t: src float32[B, N, 3], r
-    float32[B, 3, 3], t float32[B, 3]."""
-    s = [c[..., None] for c in _cols(src)]  # [B, N, 1] each
-    return _dot3(s, [r[:, None, :, j] for j in range(3)]) + t[:, None, :]
-
-
-def _nearest(src, src_mask, dst, dst_mask):
-    """For each source row, the index and squared distance of its nearest
-    valid destination row.
-
-    src float32[B, N, 3] / src_mask bool[B, N], dst float32[B, M, 3] /
-    dst_mask bool[B, M].  d^2 = |a - b|^2, summed over the axes with fused
-    multiply-adds; masked destinations are +inf, and masked sources report
-    +inf (their index is still the argmin over the valid destinations).
-    Rows go in the fewest tiles that keep a [B, rows, M] tile within
-    NEAREST_TILE_ELEMS, split evenly: a tile's bytes then follow M smoothly,
-    where the most rows a tile holds jumps by a whole row of [B, M] as M
-    crosses a multiple (the peak memory of ICP batches whose largest cloud
-    differs by a few rows moved 1.4 %)."""
-    b, n, _ = src.shape
-    m = dst.shape[1]
-    most = max(1, NEAREST_TILE_ELEMS // max(b * m, 1))
-    tiles = max(1, -(-n // most))
-    tile_rows = max(1, -(-n // tiles))
-    dmask = dst_mask[:, None, :]
-    d = [c[:, None, :] for c in _cols(dst)]  # [B, 1, M] each
-    idx = torch.empty((b, n), dtype=torch.int64, device=src.device)
-    best = torch.empty((b, n), dtype=src.dtype, device=src.device)
-    for r0 in range(0, n, tile_rows):
-        s = [c[..., None] for c in _cols(src[:, r0:r0 + tile_rows])]  # [B, rows, 1]
-        e = s[0] - d[0]
-        d2 = e * e
-        for j in (1, 2):
-            e = s[j] - d[j]
-            d2 = fma_f32(e, e, d2)
-        d2 = torch.where(dmask, d2, torch.inf)
-        i = torch.argmin(d2, dim=-1)
-        idx[:, r0:r0 + tile_rows] = i
-        best[:, r0:r0 + tile_rows] = torch.gather(d2, -1, i[..., None])[..., 0]
-    return idx, torch.where(src_mask, best, torch.inf)
-
-
-def _gather_rows(x, idx):
-    """x[b, idx[b, n]] for x [B, M, 3], idx [B, N]."""
-    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
 def batched_icp(src, src_mask, dst, dst_mask, iters: int = 20,

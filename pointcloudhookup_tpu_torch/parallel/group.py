@@ -22,19 +22,17 @@ collectives do.  Boolean tensors travel as uint8.  Over gloo every
 collective on a CUDA tensor is staged through host memory inside the call
 (gloo's send/recv of a CUDA tensor aborts the rank: it writes the device
 pointer to its socket), so several ranks can share one card over gloo
-while every kernel still runs on it.  ``calls`` counts the calls by
-collective; with ``timing`` each call is bracketed by device
-synchronisations and its host-clock milliseconds (the staging copies
-included) add to ``ms``.
+while every kernel still runs on it.  Each call adds one to the tracer's
+counter ``collective.<name>`` (``utils/trace.py``; name ``psum``, ``pmin``,
+``pmax``, ``all_gather`` or ``ppermute``).
 """
 
 from __future__ import annotations
 
-import collections
-import time
-
 import torch
 import torch.distributed as dist
+
+from pointcloudhookup_tpu_torch.utils import trace
 
 _REDUCE = {
     "sum": ("psum", dist.ReduceOp.SUM),
@@ -45,22 +43,13 @@ _REDUCE = {
 
 class Group:
     """A process group with the sharded step's collectives (see the module
-    docstring).  ``pg`` defaults to the default (world) group; set
-    ``timing`` to time the calls."""
+    docstring).  ``pg`` defaults to the default (world) group."""
 
     def __init__(self, pg=None):
         self.pg = dist.group.WORLD if pg is None else pg
         self.rank = dist.get_rank(self.pg)
         self.size = dist.get_world_size(self.pg)
         self.backend = str(dist.get_backend(self.pg))
-        self.timing = False
-        self.calls: collections.Counter = collections.Counter()
-        self.ms: collections.defaultdict = collections.defaultdict(float)
-
-    def reset(self) -> None:
-        """Zero the call counts and times."""
-        self.calls.clear()
-        self.ms.clear()
 
     def all_reduce(self, t, op: str):
         """psum / pmin / pmax of ``t`` over the ranks (op "sum", "min" or
@@ -112,17 +101,9 @@ class Group:
         return dist.get_global_rank(self.pg, group_rank)
 
     def _call(self, name: str, t, run):
-        self.calls[name] += 1
+        trace.count("collective." + name)
         is_bool = t.dtype == torch.bool
         x = t.to(torch.uint8) if is_bool else t
         staged = x.is_cuda and self.backend == "gloo"
-        if self.timing:
-            if x.is_cuda:
-                torch.cuda.synchronize(x.device)
-            t0 = time.perf_counter()
         out = run(x.cpu()).to(x.device) if staged else run(x)
-        if self.timing:
-            if x.is_cuda:
-                torch.cuda.synchronize(x.device)
-            self.ms[name] += (time.perf_counter() - t0) * 1e3
         return out.to(torch.bool) if is_bool else out

@@ -1355,16 +1355,16 @@ def _icp_batch(seed=0, b=6, n=512):
 
 @pytest.mark.cuda
 def test_nearest_cuda_bit_equal_to_cpu_and_tiled(cuda, monkeypatch):
-    from pointcloudhookup_tpu_torch.ops import registration as reg
+    from pointcloudhookup_tpu_torch.ops.kernels import nearest
 
     src, sm, dst, dm = _icp_batch()
-    ref_i, ref_d = reg._nearest(t(src), t(sm), t(dst), t(dm))
+    ref_i, ref_d = nearest._nearest(t(src), t(sm), t(dst), t(dm))
     args = [t(a, cuda) for a in (src, sm, dst, dm)]
     row_elems = dst.shape[0] * dst.shape[1]
     for rows in (None, 7, 100):
         if rows is not None:  # tiles of that many source rows
-            monkeypatch.setattr(reg, "NEAREST_TILE_ELEMS", rows * row_elems)
-        i, d = reg._nearest(*args)
+            monkeypatch.setattr(nearest, "NEAREST_TILE_ELEMS", rows * row_elems)
+        i, d = nearest._nearest(*args)
         assert torch.equal(i.cpu(), ref_i) and torch.equal(d.cpu(), ref_d)
 
 
@@ -1493,17 +1493,19 @@ def same_bits(a, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(SWEEP_CASES), ids=list(SWEEP_CASES))
 def test_nearest_kernel_bit_equal_to_plain(cuda, case):
-    """csrc/nearest.cu against ops/registration.py's _moved and _nearest on
-    the card: every index, d^2 and matched row bit for bit."""
+    """csrc/nearest.cu against its plain version (_moved, _nearest and
+    _gather_rows) on the card: every index, d^2 and matched row bit for
+    bit."""
     from pointcloudhookup_tpu_torch.ops.kernels import nearest
+    from pointcloudhookup_tpu_torch.utils import trace
 
     arrays = sweep_inputs(case)
     args = [t(a, cuda) for a in arrays]
-    before = nearest.launches
+    before = trace.counter("icp.nearest_kernel")
     got = nearest.nearest_moved(*args)
     ref = nearest.nearest_moved_plain(*args)
     torch.cuda.synchronize()
-    assert nearest.launches == before + 1
+    assert trace.counter("icp.nearest_kernel") == before + 1
     for name, g, r in zip(("idx", "d2", "matched"), got, ref):
         assert same_bits(g, r), (case, name, int((g != r).sum()))
     if case == "holes":  # every candidate masked or +inf away: index 0, d^2 +inf

@@ -318,3 +318,33 @@ def test_extract_from_points_with_and_without_the_native_passes(tile, jax_result
     for t, nt in zip(towers, n_towers):
         for field in dataclasses.fields(t):
             np.testing.assert_array_equal(getattr(t, field.name), getattr(nt, field.name))
+
+
+def test_compress_with_and_without_the_native_passes(tile, tmp_path, monkeypatch):
+    """compress writes the same bytes whether the native passes prepare the
+    tile (they take the LAS's xyz) or numpy does (no native library), and
+    counts no extract.prepare.native either way."""
+    from pointcloudhookup_tpu_torch import native
+
+    pts, _ = tile
+    las = str(tmp_path / "tile.las")
+    write_las(make_las(pts + (500_000.0, 3_100_000.0, 80.0), scales=[0.01, 0.01, 0.01]), las)
+    prepared = []
+
+    def recorded(points, cap):
+        prepared.append(native.prepare_tile(points, cap) is not None)
+        return native.prepare_tile(points, cap)
+
+    monkeypatch.setattr(tpipe, "prepare_tile", recorded)
+    runs = []
+    for lib in ("native", None):
+        if lib is None:
+            monkeypatch.setattr(native, "get_prepare_lib", lambda: None)
+        before = tpipe.trace.counter("extract.prepare.native")
+        out = str(tmp_path / f"compressed_{lib}.las")
+        n = tpipe.compress(las, out, voxel_size=0.5, device="cpu")
+        assert tpipe.trace.counter("extract.prepare.native") == before
+        with open(out, "rb") as f:
+            runs.append((n, f.read()))
+    assert prepared == [True, False]
+    assert runs[0] == runs[1] and 0 < runs[0][0] < len(pts)

@@ -6,7 +6,8 @@ The first eight tests mirror ``tests/test_registration.py`` and
 port against the JAX package on the same numpy inputs:
 
 * ``kabsch``: R and t within 1e-5;
-* ``_nearest``: the same index wherever the best and the second-best d^2
+* ``_nearest`` (the sweep's plain version, ``ops/kernels/nearest.py``):
+  the same index wherever the best and the second-best d^2
   are more than 1e-4 apart; d^2 within 1e-5 of the exact value (the port
   takes |a - b|^2 directly; the JAX module's |a|^2 + |b|^2 - 2 a.b rounds
   by up to ~3e-4 at |x| ~ 10 m);
@@ -48,6 +49,7 @@ from pointcloudhookup_tpu_torch.io.synthetic import build_synthetic_gim, synthet
 from pointcloudhookup_tpu_torch.models import pipeline
 from pointcloudhookup_tpu_torch.models.refine import refine_tower_centers, tower_frame_template
 from pointcloudhookup_tpu_torch.ops import registration as reg
+from pointcloudhookup_tpu_torch.ops.kernels import nearest
 from pointcloudhookup_tpu_torch.ops.geo import tm_forward, tm_inverse
 
 CPU = "cpu"
@@ -243,7 +245,7 @@ def _padded_pairs(rng, sizes_n, sizes_m, n, m):
 def test_nearest_matches_jax():
     rng = np.random.default_rng(1)
     src, sm, dst, dm = _padded_pairs(rng, [300, 120, 512], [256, 400, 64], 512, 400)
-    idx, d2 = reg._nearest(*_t(src, sm, dst, dm))
+    idx, d2 = nearest._nearest(*_t(src, sm, dst, dm))
     jidx, jd2 = jax.jit(jax.vmap(jreg._nearest))(src, sm, dst, dm)
     jidx, jd2 = np.asarray(jidx), np.asarray(jd2)
     # the gap between each row's best and second-best d^2 (JAX's numbers)
@@ -269,17 +271,15 @@ def test_nearest_tiled_equals_untiled(monkeypatch):
     rng = np.random.default_rng(2)
     src, sm, dst, dm = _padded_pairs(rng, [300, 120], [256, 400], 300, 400)
     args = _t(src, sm, dst, dm)
-    idx, d2 = reg._nearest(*args)  # 2 x 400 columns: one tile of 300 rows
+    idx, d2 = nearest._nearest(*args)  # 2 x 400 columns: one tile of 300 rows
     for rows in (1, 7, 64):
-        monkeypatch.setattr(reg, "NEAREST_TILE_ELEMS", rows * 2 * 400)
-        ti, td = reg._nearest(*args)
+        monkeypatch.setattr(nearest, "NEAREST_TILE_ELEMS", rows * 2 * 400)
+        ti, td = nearest._nearest(*args)
         assert torch.equal(ti, idx) and torch.equal(td, d2)
 
 
 def _sweep(src, sm, dst, dm, r=None, t=None):
     """nearest_moved on CPU tensors (the identity motion by default)."""
-    from pointcloudhookup_tpu_torch.ops.kernels import nearest
-
     b = src.shape[0]
     r = np.broadcast_to(np.eye(3, dtype=np.float32), (b, 3, 3)) if r is None else r
     t = np.zeros((b, 3), np.float32) if t is None else t
@@ -373,7 +373,7 @@ def test_nearest_nan_rule():
     np.testing.assert_array_equal(d2[0, [0, 3]].numpy(), [0.25, inf])
     assert np.isnan(float(d2[0, 1])) and np.isnan(float(d2[0, 2]))
     eye = np.eye(3, dtype=np.float32)[None]
-    moved = reg._moved(*_t(src, eye, np.zeros((1, 3), np.float32))).numpy()
+    moved = nearest._moved(*_t(src, eye, np.zeros((1, 3), np.float32))).numpy()
     ref_i, ref_d = _brute_nearest(moved, sm, dst, dm)
     np.testing.assert_array_equal(idx.numpy(), ref_i)
     np.testing.assert_array_equal(d2.numpy(), ref_d)
@@ -393,7 +393,7 @@ def test_nearest_non_prefix_masks():
     r = np.stack([_rot_z(a) for a in (0.1, -0.3, 0.7)]).astype(np.float32)
     t = rng.normal(0, 1, (b, 3)).astype(np.float32)
     idx, d2, matched = _sweep(src, sm, dst, dm, r, t)
-    moved = reg._moved(*_t(src, r, t)).numpy()
+    moved = nearest._moved(*_t(src, r, t)).numpy()
     ref_i, ref_d = _brute_nearest(moved, sm, dst, dm)
     np.testing.assert_array_equal(idx.numpy(), ref_i)
     np.testing.assert_array_equal(d2.numpy(), ref_d)
@@ -410,33 +410,32 @@ def test_moved_fused_order():
     r = np.stack([_rot_z(a) @ _rot_z(0.2).T for a in rng.uniform(-1, 1, 4)]).astype(np.float32)
     r[:, 2, :] += rng.normal(0, 1e-3, (4, 3)).astype(np.float32)
     t = rng.normal(0, 10, (4, 3)).astype(np.float32)
-    got = reg._moved(*_t(src, r, t)).numpy()
+    got = nearest._moved(*_t(src, r, t)).numpy()
     s = [src[..., k][..., None] for k in range(3)]
     rc = [r[:, None, :, k] for k in range(3)]
     want = (_fma32(s[2], rc[2], _fma32(s[1], rc[1], s[0] * rc[0])) + t[:, None, :]).astype(
         np.float32)
     np.testing.assert_array_equal(got, want)
     cols = [torch.from_numpy(c) for c in s]
-    dot = reg._dot3(cols, [torch.from_numpy(np.ascontiguousarray(c)) for c in rc])
+    dot = nearest._dot3(cols, [torch.from_numpy(np.ascontiguousarray(c)) for c in rc])
     np.testing.assert_array_equal(got, (dot + torch.from_numpy(t)[:, None, :]).numpy())
 
 
 def test_nearest_moved_cpu_takes_plain_path():
     """CPU tensors run the plain version: no launch, no count, and the
     results of _moved, _nearest and _gather_rows."""
-    from pointcloudhookup_tpu_torch.ops.kernels import nearest
     from pointcloudhookup_tpu_torch.utils import trace
 
     rng = np.random.default_rng(8)
     src, sm, dst, dm = _padded_pairs(rng, [40, 9], [30, 64], 40, 64)
     r = np.stack([_rot_z(0.05), _rot_z(-0.4)]).astype(np.float32)
     t = np.array([[0.5, 0.0, -1.0], [2.0, 1.0, 0.0]], np.float32)
-    before, counted = nearest.launches, trace.counter("icp.nearest_kernel")
+    counted = trace.counter("icp.nearest_kernel")
     idx, d2, matched = nearest.nearest_moved(*_t(src, sm, dst, dm, r, t))
-    assert nearest.launches == before and trace.counter("icp.nearest_kernel") == counted
-    ref_i, ref_d = reg._nearest(reg._moved(*_t(src, r, t)), *_t(sm, dst, dm))
+    assert trace.counter("icp.nearest_kernel") == counted
+    ref_i, ref_d = nearest._nearest(nearest._moved(*_t(src, r, t)), *_t(sm, dst, dm))
     assert torch.equal(idx, ref_i) and torch.equal(d2, ref_d)
-    assert torch.equal(matched, reg._gather_rows(torch.from_numpy(dst), ref_i))
+    assert torch.equal(matched, nearest._gather_rows(torch.from_numpy(dst), ref_i))
 
 
 @pytest.mark.parametrize("shape,want", [
