@@ -5,17 +5,22 @@ Copy of ``pointcloudhookup_tpu/io/las.py`` (``LasData``, ``read_las``,
 imports nothing of the JAX package.  LAS 1.2-1.4, point record formats 0-3
 and 6-10.  Scaled-integer semantics match laspy and the LAS spec: world =
 record * scale + offset; scales and offsets round-trip.  LAZ files route
-through ``io/laz.py`` and the native LASzip decoder in ``read_las``.
+through ``io/laz.py`` and the native LASzip decoder in ``read_las``.  Unlike
+the copy, ``read_las`` leaves an uncompressed file's records on disk until
+they are used, so that ``read_las(path).xyz()`` is one native pass from the
+file to f64 rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import struct
 from typing import Optional
 
 import numpy as np
 
+from pointcloudhookup_tpu_torch import native
 from pointcloudhookup_tpu_torch.utils import trace
 
 _SIGNATURE = b"LASF"
@@ -120,10 +125,59 @@ def peek_point_count(path) -> int:
     return count
 
 
+class _LasFile(LasData):
+    """What read_las returns for an uncompressed file: its header and VLR
+    block, with the records left in the file until they are asked for.
+    ``points`` reads them on first use.  ``xyz()`` before that decodes the
+    world coordinates from the file in one native pass
+    (``native/las_codec.cpp``, counted as ``las.read.native``) where the
+    decoder is built and returns every record the header counts, and from
+    the records otherwise: the same bits either way."""
+
+    def __init__(self, path: str, point_offset: int, count: int, record_len: int, **header):
+        self._path, self._point_offset = path, point_offset
+        self._count, self._record_len = count, record_len
+        super().__init__(None, **header)
+
+    @property
+    def points(self) -> np.ndarray:
+        if self._points is None:
+            with open(self._path, "rb") as f:
+                f.seek(self._point_offset)
+                raw = np.fromfile(f, np.uint8, self._count * self._record_len)
+            dtype = POINT_DTYPES[self.point_format]
+            raw = raw.reshape(self._count, self._record_len)
+            # records may carry extra bytes; view only the leading known fields
+            self._points = np.ascontiguousarray(raw[:, : dtype.itemsize]).view(dtype).reshape(
+                self._count
+            )
+        return self._points
+
+    @points.setter
+    def points(self, value: Optional[np.ndarray]) -> None:
+        self._points = value
+
+    def xyz(self) -> np.ndarray:
+        if self._points is None:
+            xyz = native.las_read_xyz(self._path)
+            if xyz is not None and len(xyz) == self._count:
+                trace.count("las.read.native")
+                return xyz
+        return super().xyz()
+
+    def __len__(self) -> int:
+        return self._count if self._points is None else len(self._points)
+
+
 def read_las(path) -> LasData:
+    """The LAS/LAZ file at ``path``.  Raises ValueError for a file it cannot
+    read whole: a bad signature, a header or point block cut short, a point
+    format it does not know, records shorter than their format.  A LAZ file
+    is decoded at once; an uncompressed one keeps its records in the file
+    until they are used (``_LasFile``)."""
     with trace.span("las.read"):
         with open(path, "rb") as f:
-            data = f.read()
+            data = f.read(375)  # the largest public header (LAS 1.4)
         if data[:4] != _SIGNATURE:
             raise ValueError(f"not a LAS file (bad signature): {path!r}")
         if len(data) < 227:
@@ -143,7 +197,8 @@ def read_las(path) -> LasData:
             # LAZ: chunked-arithmetic LASzip payload (native codec)
             from pointcloudhookup_tpu_torch.io.laz import read_laz_bytes
 
-            return read_laz_bytes(data, str(path))
+            with open(path, "rb") as f:
+                return read_laz_bytes(f.read(), str(path))
         fmt = fmt_raw & 0x3F
         if fmt not in POINT_DTYPES:
             raise ValueError(f"unsupported point format {fmt}")
@@ -161,14 +216,16 @@ def read_las(path) -> LasData:
             raise ValueError(
                 f"record length {record_len} smaller than format {fmt} size {dtype.itemsize}"
             )
-        raw = np.frombuffer(data, np.uint8, count * record_len, point_offset).reshape(
-            count, record_len
-        )
-        # records may carry extra bytes; view only the leading known fields
-        points = np.ascontiguousarray(raw[:, : dtype.itemsize]).view(dtype).reshape(count)
-        vlr_bytes = data[header_size:point_offset]
-        return LasData(
-            points=points.copy(),
+        if point_offset + count * record_len > os.path.getsize(path):
+            raise ValueError(
+                f"truncated LAS point block ({count} records of {record_len} bytes"
+                f" from byte {point_offset}): {path!r}"
+            )
+        with open(path, "rb") as f:
+            f.seek(header_size)
+            vlr_bytes = f.read(max(point_offset - header_size, 0))
+        return _LasFile(
+            os.fsdecode(path), point_offset, count, record_len,
             scales=scales,
             offsets=offsets,
             point_format=fmt,

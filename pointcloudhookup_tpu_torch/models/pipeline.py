@@ -40,7 +40,7 @@ from pointcloudhookup_tpu_torch.config import (
 from pointcloudhookup_tpu_torch.core.batch import round_up
 from pointcloudhookup_tpu_torch.io.cbm import apply_corrections, load_towers_from_gim_folder
 from pointcloudhookup_tpu_torch.io.gim import extract_gim, write_gim
-from pointcloudhookup_tpu_torch.io.las import make_las, read_las, write_las
+from pointcloudhookup_tpu_torch.io.las import LasData, make_las, read_las, write_las
 from pointcloudhookup_tpu_torch.models.towers import Tower, extract_step, towers_from_stats
 from pointcloudhookup_tpu_torch.native import prepare_tile
 from pointcloudhookup_tpu_torch.ops.frontend_exact import (
@@ -77,9 +77,7 @@ def compress(
     Returns the output point count."""
     with trace.span("compress"):
         rep = Reporter(progress_callback, log_callback)
-        las = read_las(input_path)
-        with trace.span("las.xyz"):
-            pts = las.xyz()
+        las, pts = _read_las(input_path)
         rep.log(f"read {len(pts)} points from {input_path}")
         rep.progress(10)
 
@@ -106,6 +104,17 @@ def compress(
         rep.progress(100)
         rep.log(f"downsampled to {len(out)} points -> {output_path}")
     return len(out)
+
+
+def _read_las(path) -> tuple[LasData, np.ndarray]:
+    """The LAS/LAZ file at ``path`` and its world xyz f64[N, 3], under one
+    las.load span: read_las's header read (las.read), then the xyz decode
+    (las.xyz), native in one pass for an uncompressed file where the
+    decoder is built (io/las.py ``_LasFile``)."""
+    with trace.span("las.load"):
+        las = read_las(path)
+        with trace.span("las.xyz"):
+            return las, las.xyz()
 
 
 def _upload(array: np.ndarray, device) -> torch.Tensor:
@@ -156,9 +165,7 @@ def extract(
 
     rep.log(f"reading {input_las_path}")
     rep.progress(5)
-    las = read_las(input_las_path)
-    with trace.span("las.xyz"):
-        pts = las.xyz()
+    las, pts = _read_las(input_las_path)
     rep.log(f"read {len(pts)} points")
 
     towers, stats, origin = extract_from_points(pts, params, device=device)

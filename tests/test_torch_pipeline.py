@@ -348,3 +348,174 @@ def test_compress_with_and_without_the_native_passes(tile, tmp_path, monkeypatch
             runs.append((n, f.read()))
     assert prepared == [True, False]
     assert runs[0] == runs[1] and 0 < runs[0][0] < len(pts)
+
+
+def _counted_native_reads(fn):
+    """fn()'s result and how many reads the native LAS decoder served in it."""
+    before = tpipe.trace.counter("las.read.native")
+    out = fn()
+    return out, tpipe.trace.counter("las.read.native") - before
+
+
+def test_extract_las_file_with_and_without_the_native_reader(tmp_path, corridor, monkeypatch):
+    """extract() gives the same towers, labels, ground keep and origin, and
+    writes the same per-tower LAS bytes, whether the native decoder reads
+    the tile (counted once) or read_las(...).xyz() does (no native library:
+    counted never)."""
+    from pointcloudhookup_tpu_torch import native
+
+    pts, _ = corridor
+    path = str(tmp_path / "corridor.las")
+    write_las(make_las(pts, scales=[0.001] * 3), path)
+    params = ExtractParams(
+        cluster=ClusterParams(eps=5.0, min_points=30, auto_grid_threshold=1000)
+    )
+    inner = tpipe.extract_from_points
+    kept = []
+
+    def capture(*args, **kwargs):
+        kept.append(inner(*args, **kwargs))
+        return kept[-1]
+
+    monkeypatch.setattr(tpipe, "extract_from_points", capture)
+    runs = []
+    for lib in ("native", None):
+        if lib is None:
+            monkeypatch.setattr(native, "get_lib", lambda: None)
+        out_dir = tmp_path / f"towers_{lib}"
+        towers, served = _counted_native_reads(lambda: tpipe.extract(
+            path, params=params, device="cpu", output_dir=str(out_dir)))
+        assert served == (lib is not None)
+        files = {p.name: p.read_bytes() for p in sorted(out_dir.iterdir())}
+        runs.append((towers, kept[-1], files))
+    (towers, (_, stats, origin), files), (n_towers, (_, n_stats, n_origin), n_files) = runs
+    np.testing.assert_array_equal(origin.view(np.int64), n_origin.view(np.int64))
+    for key in ("labels", "ground_keep"):
+        np.testing.assert_array_equal(stats[key], n_stats[key])
+    assert len(towers) == len(n_towers) > 0
+    for t, nt in zip(towers, n_towers):
+        for field in dataclasses.fields(t):
+            np.testing.assert_array_equal(getattr(t, field.name), getattr(nt, field.name))
+    assert files == n_files and len(files) == len(towers)
+
+
+def test_compress_with_and_without_the_native_reader(tile, tmp_path, monkeypatch):
+    """compress writes the same bytes whether the native decoder reads the
+    source (counted once) or read_las(...).xyz() does (counted never); the
+    version and point format of the source carry through either way."""
+    from pointcloudhookup_tpu_torch import native
+
+    pts, _ = tile
+    las = str(tmp_path / "tile.las")
+    write_las(make_las(pts + (500_000.0, 3_100_000.0, 80.0), scales=[0.01, 0.01, 0.005],
+                       point_format=1, version=(1, 3)), las)
+    runs = []
+    for lib in ("native", None):
+        if lib is None:
+            monkeypatch.setattr(native, "get_lib", lambda: None)
+        out = str(tmp_path / f"compressed_{lib}.las")
+        n, served = _counted_native_reads(
+            lambda: tpipe.compress(las, out, voxel_size=0.5, device="cpu"))
+        assert served == (lib is not None)
+        with open(out, "rb") as f:
+            runs.append((n, f.read()))
+    assert runs[0] == runs[1] and 0 < runs[0][0] < len(pts)
+    assert runs[0][1][24:26] == bytes((1, 3)) and runs[0][1][104] == 1
+
+
+# each case turns a sound format-0 file (20-byte records) into one read_las refuses
+BAD_FILES = {
+    "bad-signature": lambda d: b"LASX" + d[4:],
+    "truncated-header": lambda d: d[:200],
+    "truncated-points": lambda d: d[:-(10 * 20 + 7)],
+    "point-format-4": lambda d: d[:104] + bytes((4,)) + d[105:],
+    "short-records": lambda d: d[:105] + (19).to_bytes(2, "little") + d[107:],
+}
+
+
+@pytest.mark.parametrize("case", [*BAD_FILES, "laz", "short-decode"])
+def test_the_native_reader_takes_only_what_read_las_reads(tmp_path, corridor, case,
+                                                          monkeypatch):
+    """A file that the JAX package's read_las refuses makes the port's
+    read_las, extract() and compress() raise the same error type, and the
+    native decoder serves none of it (it would read formats 4 and 5, and
+    records shorter than their format).  A LAZ file, and a decode that
+    returns fewer rows than the header counts, are read from the records:
+    the same rows, never fewer."""
+    from pointcloudhookup_tpu.io.las import read_las as jread_las
+    from pointcloudhookup_tpu_torch import native
+    from pointcloudhookup_tpu_torch.io import las as tlas
+    from pointcloudhookup_tpu_torch.io import laz as tlaz
+
+    pts, _ = corridor
+    path = str(tmp_path / ("tile.laz" if case == "laz" else "tile.las"))
+    if case == "laz":
+        tlaz.write_laz(tlas.make_las(pts, scales=[0.001] * 3), path)
+    else:
+        write_las(make_las(pts, scales=[0.001] * 3), path)
+    if case in BAD_FILES:
+        with open(path, "rb") as f:
+            data = BAD_FILES[case](f.read())
+        with open(path, "wb") as f:
+            f.write(data)
+        with pytest.raises(Exception) as parent:
+            jread_las(path).xyz()
+        before = tpipe.trace.counter("las.read.native")
+        for run in (lambda: tlas.read_las(path).xyz(),
+                    lambda: tpipe.extract(path, device="cpu"),
+                    lambda: tpipe.compress(path, str(tmp_path / "out.las"), device="cpu")):
+            with pytest.raises(type(parent.value)):
+                run()
+        assert tpipe.trace.counter("las.read.native") == before
+        return
+    ref = tlas.read_las(path)
+    ref_xyz = ref.xyz() if case == "laz" else jread_las(path).xyz()
+    if case == "short-decode":
+        inner = native.las_read_xyz
+        monkeypatch.setattr(native, "las_read_xyz", lambda p: inner(p)[:-1])
+    (las, xyz), served = _counted_native_reads(lambda: tpipe._read_las(path))
+    assert served == 0 and len(xyz) == len(las) == len(pts)
+    np.testing.assert_array_equal(xyz.view(np.int64), ref_xyz.view(np.int64))
+    assert (las.point_format, las.version) == (ref.point_format, ref.version)
+
+
+@pytest.mark.parametrize("fmt,extra", [(0, 0), (1, 0), (2, 0), (3, 6), (6, 0), (7, 0),
+                                       (8, 3), (9, 0), (10, 0)])
+def test_read_las_reads_records_only_when_used(tmp_path, fmt, extra):
+    """read_las leaves a file's records on disk: xyz() decodes natively
+    (counted once) to the JAX package's rows, points reads the same records
+    as the JAX package (records longer than their format too), and xyz()
+    after points are replaced gives the rows of the new points, as the
+    record path always did."""
+    from pointcloudhookup_tpu.io.las import POINT_DTYPES as JDTYPES
+    from pointcloudhookup_tpu.io.las import read_las as jread_las
+    from pointcloudhookup_tpu_torch.io.las import read_las
+
+    rng = np.random.default_rng(fmt)
+    n = 3000
+    src = make_las(np.zeros((n, 3)), scales=[0.01, 0.001, 0.0025], point_format=fmt)
+    src.points = np.ascontiguousarray(rng.integers(0, 256, (n, JDTYPES[fmt].itemsize), np.uint8)
+                                      ).view(JDTYPES[fmt]).reshape(n)
+    path = str(tmp_path / "r.las")
+    write_las(src, path)
+    if extra:  # widen every record by `extra` trailing bytes, as the header says
+        with open(path, "rb") as f:
+            data = bytearray(f.read())
+        off = int.from_bytes(data[96:100], "little")
+        rec = JDTYPES[fmt].itemsize
+        body = np.frombuffer(bytes(data[off:]), np.uint8).reshape(n, rec)
+        body = np.concatenate([body, np.full((n, extra), 7, np.uint8)], axis=1)
+        data[105:107] = (rec + extra).to_bytes(2, "little")
+        with open(path, "wb") as f:
+            f.write(bytes(data[:off]) + body.tobytes())
+    ref = jread_las(path)
+    (xyz, served) = _counted_native_reads(lambda: read_las(path).xyz())
+    assert served == 1
+    np.testing.assert_array_equal(xyz.view(np.int64), ref.xyz().view(np.int64))
+    las = read_las(path)
+    assert len(las) == n
+    assert las.points.tobytes() == ref.points.tobytes() and las.points.flags.writeable
+    las.points = las.points[: n // 2]
+    half, served = _counted_native_reads(las.xyz)
+    assert served == 0
+    np.testing.assert_array_equal(half.view(np.int64), ref.xyz()[: n // 2].view(np.int64))

@@ -199,12 +199,16 @@ def test_compress_spans_in_order(tmp_path):
     pipeline.compress(src, out, voxel_size=0.5, device="cpu")
     got = trace.spans()
     by_id = {s.name: s.id for s in got}
-    assert names(got) == ["compress", "las.read", "las.xyz", "compress.prepare",
+    assert names(got) == ["compress", "las.load", "las.read", "las.xyz", "compress.prepare",
                           "compress.voxel", "compress.fetch", "compress.write"]
     parents = {s.parent for s in got}
     assert [s.name for s in got if s.id not in parents][0] == "las.read"  # leaves
-    assert all(s.parent == by_id["compress"] for s in got if s.name != "compress")
+    under_load = {"las.read", "las.xyz"}
+    assert all(s.parent == by_id["las.load"] for s in got if s.name in under_load)
+    assert all(s.parent == by_id["compress"] for s in got
+               if s.name not in under_load | {"compress"})
     by = {s.name: s for s in got}
+    assert by["las.xyz"].counts == {"las.read.native": 1}  # the native decoder
     assert by["compress.fetch"].counts == {"fetch": 2}
     assert by["compress.prepare"].counts["upload_bytes"] > 0
 
