@@ -21,6 +21,7 @@ from pointcloudhookup_tpu_torch.ops.cluster_adaptive import adaptive_cluster
 from pointcloudhookup_tpu_torch.ops.cluster_grid import grid_dbscan
 from pointcloudhookup_tpu_torch.ops.ground import ground_filter
 from pointcloudhookup_tpu_torch.ops.obb import cluster_obb_stats
+from pointcloudhookup_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -48,7 +49,8 @@ def filter_and_dedup(stats: dict, fp: TowerFilterParams = TowerFilterParams()):
     reject any candidate whose 3D center lies within duplicate_threshold
     of an EARLIER accepted one.  The greedy scan is the fixpoint of
     accepted[i] = ok[i] & no earlier accepted conflict, iterated from
-    accepted = ok (at most K rounds).  Returns accepted bool[K]."""
+    accepted = ok (at most K rounds).  Each round reads the device once
+    and counts as ``extract.dedup_rounds``.  Returns accepted bool[K]."""
     ext = stats["extent"]
     height = ext[:, 2]
     width = ext[:, 0]  # ex >= ey by construction
@@ -70,6 +72,7 @@ def filter_and_dedup(stats: dict, fp: TowerFilterParams = TowerFilterParams()):
     )
     accepted = ok
     for _ in range(k):
+        trace.count("extract.dedup_rounds")
         new = ok & ~(earlier_conflict & accepted[None, :]).any(dim=1)
         if torch.equal(new, accepted):
             break
@@ -88,32 +91,38 @@ def extract_step(xyz, mask, params: ExtractParams = ExtractParams()):
     auto_grid_threshold rows, ``dbscan`` otherwise.  Returns a dict of
     tensors: labels int32[N], ground_keep bool[N], base_height, accepted
     bool[K], cells_overflow (dense cells beyond the grid table; 0 on the
-    other branches) and the per-cluster stats of ``cluster_obb_stats``."""
-    keep, base = ground_filter(xyz, mask, params.ground)
+    other branches) and the per-cluster stats of ``cluster_obb_stats``.
+    The four phases run under the spans ``extract.ground``,
+    ``extract.cluster``, ``extract.obb`` and ``extract.filter``."""
+    with trace.span("extract.ground"):
+        keep, base = ground_filter(xyz, mask, params.ground)
     cp = params.cluster
     n = xyz.shape[0]
     cells_overflow = torch.zeros((), dtype=torch.float32, device=xyz.device)
-    if cp.per_chunk:
-        labels, _ = dbscan_chunked(xyz, keep, cp.eps, cp.min_points,
-                                   chunk_size=cp.chunk_size)
-        # chunk-offset labels are sparse: compact them to [0, K)
-        labels = compact_labels(torch.where(labels >= 0, labels, n), n)
-    elif cp.method == "adaptive":
-        labels, _, _ = adaptive_cluster(
-            xyz, keep, cp.min_points, min_cluster_size=cp.min_cluster_size,
-            max_cells=cp.max_cells, min_cell_points=cp.min_cell_points,
-            eps_fallback=cp.eps,
-        )
-    elif cp.method == "grid" or (cp.method == "auto" and n > cp.auto_grid_threshold):
-        labels, _, cells_overflow = grid_dbscan(
-            xyz, keep, cp.eps, cp.min_points, max_cells=cp.max_cells,
-            min_cell_points=cp.min_cell_points,
-        )
-    else:
-        labels, _ = dbscan(xyz, keep, cp.eps, cp.min_points)
-    stats = cluster_obb_stats(xyz, labels, keep, max_clusters=params.max_clusters,
-                              num_angles=params.obb_angles)
-    accepted = filter_and_dedup(stats, params.filters)
+    with trace.span("extract.cluster"):
+        if cp.per_chunk:
+            labels, _ = dbscan_chunked(xyz, keep, cp.eps, cp.min_points,
+                                       chunk_size=cp.chunk_size)
+            # chunk-offset labels are sparse: compact them to [0, K)
+            labels = compact_labels(torch.where(labels >= 0, labels, n), n)
+        elif cp.method == "adaptive":
+            labels, _, _ = adaptive_cluster(
+                xyz, keep, cp.min_points, min_cluster_size=cp.min_cluster_size,
+                max_cells=cp.max_cells, min_cell_points=cp.min_cell_points,
+                eps_fallback=cp.eps,
+            )
+        elif cp.method == "grid" or (cp.method == "auto" and n > cp.auto_grid_threshold):
+            labels, _, cells_overflow = grid_dbscan(
+                xyz, keep, cp.eps, cp.min_points, max_cells=cp.max_cells,
+                min_cell_points=cp.min_cell_points,
+            )
+        else:
+            labels, _ = dbscan(xyz, keep, cp.eps, cp.min_points)
+    with trace.span("extract.obb"):
+        stats = cluster_obb_stats(xyz, labels, keep, max_clusters=params.max_clusters,
+                                  num_angles=params.obb_angles)
+    with trace.span("extract.filter"):
+        accepted = filter_and_dedup(stats, params.filters)
     return dict(labels=labels, ground_keep=keep, base_height=base, accepted=accepted,
                 cells_overflow=cells_overflow, **stats)
 

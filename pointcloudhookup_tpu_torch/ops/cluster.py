@@ -26,6 +26,7 @@ import torch
 from pointcloudhookup_tpu_torch.ops.kernels.build import f32_scalar
 from pointcloudhookup_tpu_torch.ops.kernels.cluster_converge import cluster_cells
 from pointcloudhookup_tpu_torch.ops.morton import morton_encode
+from pointcloudhookup_tpu_torch.utils import trace
 
 _BIG = 3.0e38
 _DEAD_KEY = 1 << 62  # sorts after every 60-bit Morton code
@@ -99,12 +100,14 @@ def dbscan_chunked(xyz, mask, eps, min_points: int, *, chunk_size: int = 50_000,
     """Reference-parity chunked clustering: each contiguous chunk of
     ``chunk_size`` rows is clustered on its own and its labels are offset
     by ``chunk * chunk_size`` so they stay globally unique (the reference
-    never merges across chunks).  N must be a multiple of chunk_size."""
+    never merges across chunks).  N must be a multiple of chunk_size.
+    Each chunk counts as ``cluster.chunks``."""
     n = xyz.shape[0]
     if n % chunk_size:
         raise ValueError(f"capacity {n} not a multiple of chunk_size {chunk_size}")
     labels, core = [], []
     for c0 in range(0, n, chunk_size):
+        trace.count("cluster.chunks")
         lab, cor = dbscan(xyz[c0 : c0 + chunk_size], mask[c0 : c0 + chunk_size], eps,
                           min_points, max_iters=max_iters)
         labels.append(torch.where(lab >= 0, lab + c0, -1))

@@ -190,6 +190,61 @@ def test_extract_spans_in_order_and_ladder_steps(monkeypatch, eps, n_veg, max_ce
     assert len(fetched) == steps and min(fetched) > 0
 
 
+_STEP_PARAMS = {
+    "per_chunk": ClusterParams(eps=5.0, min_points=30, per_chunk=True, chunk_size=1024),
+    "modular": ClusterParams(eps=5.0, min_points=30),
+    "exact": ClusterParams(eps=5.0, min_points=30, auto_grid_threshold=1000),
+}
+
+
+def _step_tile():
+    pts, _ = synthetic_corridor(np.random.default_rng(11), n_ground=4000, n_veg=800,
+                                pts_per_tower=400, extent=250.0)
+    return pts[np.argsort(pts[:, 0], kind="stable")]  # flight order: towers cut by chunks
+
+
+@pytest.mark.parametrize("path", ["per_chunk", "modular"])
+def test_modular_step_spans_and_counters(path):
+    """extract_step's four phases open under extract.graph; per chunk,
+    cluster.chunks counts capacity / chunk_size; every dedup round counts."""
+    params = ExtractParams(cluster=_STEP_PARAMS[path])
+    chunks0, rounds0 = trace.counter("cluster.chunks"), trace.counter("extract.dedup_rounds")
+    trace.enable()
+    _, stats, _ = pipeline.extract_from_points(_step_tile(), params, device="cpu")
+    trace.disable()
+    assert "modular" in stats
+    got = trace.spans()
+    step = ["extract.ground", "extract.cluster", "extract.obb", "extract.filter"]
+    assert names(got) == (["extract", "extract.prepare", "extract.upload", "extract.graph"]
+                          + step + ["extract.fetch", "extract.finish"])
+    by = {s.name: s for s in got}
+    assert all(by[n].parent == by["extract.graph"].id for n in step)
+    cap = stats["labels"].shape[0]
+    chunks = cap // 1024 if path == "per_chunk" else 0
+    assert trace.counter("cluster.chunks") - chunks0 == chunks
+    assert by["extract.cluster"].counts == ({"cluster.chunks": chunks} if chunks else None)
+    rounds = trace.counter("extract.dedup_rounds") - rounds0
+    assert rounds >= 1 and by["extract.filter"].counts == {"extract.dedup_rounds": rounds}
+
+
+@pytest.mark.parametrize("path", ["per_chunk", "modular", "exact"])
+def test_extract_outputs_equal_with_the_tracer_on_and_off(path):
+    params = ExtractParams(cluster=_STEP_PARAMS[path])
+    pts = _step_tile()
+    off_towers, off, _ = pipeline.extract_from_points(pts, params, device="cpu")
+    trace.enable()
+    on_towers, on, _ = pipeline.extract_from_points(pts, params, device="cpu")
+    trace.disable()
+    assert ("ladder" in on) == (path == "exact") and trace.spans()
+    for key in ("labels", "ground_keep", "accepted", "center", "extent", "count"):
+        assert np.array_equal(on[key], off[key]), key
+    assert len(on_towers) == len(off_towers) >= 2
+    for a, b in zip(on_towers, off_towers):
+        assert a.label == b.label and a.num_points == b.num_points
+        assert np.array_equal(a.center, b.center) and np.array_equal(a.extent, b.extent)
+        assert a.north_angle == b.north_angle
+
+
 def test_compress_spans_in_order(tmp_path):
     pts, _ = synthetic_corridor(np.random.default_rng(8), n_ground=3000, n_veg=300,
                                 pts_per_tower=200, extent=150.0)
