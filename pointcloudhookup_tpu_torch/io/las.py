@@ -8,7 +8,8 @@ record * scale + offset; scales and offsets round-trip.  LAZ files route
 through ``io/laz.py`` and the native LASzip decoder in ``read_las``.  Unlike
 the copy, ``read_las`` leaves an uncompressed file's records on disk until
 they are used, so that ``read_las(path).xyz()`` is one native pass from the
-file to f64 rows.
+file to f64 rows, and ``write_kept_rows`` writes compress's output from the
+f32 voxel rows in one native pass, with the header ``write_las`` packs.
 """
 
 from __future__ import annotations
@@ -267,21 +268,20 @@ def make_las(
     )
 
 
-def write_las(las: LasData, path) -> None:
-    fmt = las.point_format
-    ver = tuple(las.version)
+def _header(point_format: int, version, n: int, scales, offsets, mins, maxs,
+            num_vlrs: int = 0, vlr_len: int = 0) -> bytes:
+    """The public header of a LAS file of ``n`` records: ``version``
+    normalised to one this writer knows (1.4 for formats 6-10), the record
+    length of ``point_format``, the point block after ``vlr_len`` bytes of
+    VLRs, and the bounds ``mins`` and ``maxs`` of the decoded coordinates."""
+    fmt = point_format
+    ver = tuple(version)
     if ver not in _HEADER_SIZES:
         ver = (1, 4) if fmt >= 6 else (1, 2)
     if fmt >= 6 and ver < (1, 4):
         ver = (1, 4)
     header_size = _HEADER_SIZES[ver]
-    dtype = POINT_DTYPES[fmt]
-    n = len(las.points)
-    point_offset = header_size + len(las.vlr_bytes)
-
-    xyz = las.xyz()
-    mins = xyz.min(axis=0) if n else np.zeros(3)
-    maxs = xyz.max(axis=0) if n else np.zeros(3)
+    point_offset = header_size + vlr_len
 
     buf = bytearray(header_size)
     buf[0:4] = _SIGNATURE
@@ -293,12 +293,13 @@ def write_las(las: LasData, path) -> None:
     struct.pack_into("<HH", buf, 90, 1, 2026)  # creation day/year
     legacy_n = n if (ver < (1, 4) or n < 2**32) else 0
     struct.pack_into(
-        "<HIIBH I", buf, 94, header_size, point_offset, las.num_vlrs, fmt, dtype.itemsize, legacy_n
+        "<HIIBH I", buf, 94, header_size, point_offset, num_vlrs, fmt,
+        POINT_DTYPES[fmt].itemsize, legacy_n
     )
     # legacy number by return (first slot = all points, like simple writers)
     struct.pack_into("<5I", buf, 111, legacy_n, 0, 0, 0, 0)
-    struct.pack_into("<3d", buf, 131, *las.scales)
-    struct.pack_into("<3d", buf, 155, *las.offsets)
+    struct.pack_into("<3d", buf, 131, *scales)
+    struct.pack_into("<3d", buf, 155, *offsets)
     struct.pack_into(
         "<6d", buf, 179, maxs[0], mins[0], maxs[1], mins[1], maxs[2], mins[2]
     )
@@ -307,8 +308,42 @@ def write_las(las: LasData, path) -> None:
     if ver >= (1, 4):
         struct.pack_into("<QIQ", buf, 235, 0, 0, n)  # EVLR offset/count, count64
         struct.pack_into("<15Q", buf, 255, n, *([0] * 14))
+    return bytes(buf)
 
+
+def write_las(las: LasData, path) -> None:
+    dtype = POINT_DTYPES[las.point_format]
+    n = len(las.points)
+    xyz = las.xyz()
+    mins = xyz.min(axis=0) if n else np.zeros(3)
+    maxs = xyz.max(axis=0) if n else np.zeros(3)
+    header = _header(las.point_format, las.version, n, las.scales, las.offsets, mins, maxs,
+                     las.num_vlrs, len(las.vlr_bytes))
     with open(path, "wb") as f:
-        f.write(bytes(buf))
+        f.write(header)
         f.write(las.vlr_bytes)
         f.write(las.points.astype(dtype, copy=False).tobytes())
+
+
+def write_kept_rows(path, rows: np.ndarray, keep: np.ndarray, origin, scales, offsets,
+                    point_format: int = 0, version: tuple[int, int] = (1, 2)) -> Optional[int]:
+    """Write the file that ``write_las(make_las(rows[keep].astype(np.float64)
+    + origin, scales, offsets, point_format, version), path)`` writes, byte
+    for byte, with the records encoded in one native pass over the f32
+    ``rows`` and their bool ``keep`` mask (``native/las_encode.cpp``) and
+    written from its buffer.  Returns the point count; raises make_las's
+    ValueError for a coordinate beyond int32 (or NaN); returns None, writing
+    nothing, where ``native.encode_las_records`` leaves the rows to numpy
+    (no compiler, or a scale or an offset that is not finite): the caller
+    writes them with make_las and write_las."""
+    record_len = POINT_DTYPES[point_format].itemsize
+    got = native.encode_las_records(rows, keep, origin, scales, offsets, record_len)
+    if got is None:
+        return None
+    records, mins, maxs = got
+    n = len(records) // record_len
+    header = _header(point_format, version, n, scales, offsets, mins, maxs)
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(records)
+    return n

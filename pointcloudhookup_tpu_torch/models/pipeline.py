@@ -40,7 +40,13 @@ from pointcloudhookup_tpu_torch.config import (
 from pointcloudhookup_tpu_torch.core.batch import round_up
 from pointcloudhookup_tpu_torch.io.cbm import apply_corrections, load_towers_from_gim_folder
 from pointcloudhookup_tpu_torch.io.gim import extract_gim, write_gim
-from pointcloudhookup_tpu_torch.io.las import LasData, make_las, read_las, write_las
+from pointcloudhookup_tpu_torch.io.las import (
+    LasData,
+    make_las,
+    read_las,
+    write_kept_rows,
+    write_las,
+)
 from pointcloudhookup_tpu_torch.models.towers import Tower, extract_step, towers_from_stats
 from pointcloudhookup_tpu_torch.native import prepare_tile
 from pointcloudhookup_tpu_torch.ops.frontend_exact import (
@@ -93,17 +99,26 @@ def compress(
                 out_xyz, out_mask = voxel_downsample(xyz_t, mask_t, voxel_size)
         rep.progress(80)
         with trace.span("compress.fetch"):
-            out = to_numpy(out_xyz)[to_numpy(out_mask)].astype(np.float64) + origin
+            rows, keep = to_numpy(out_xyz), to_numpy(out_mask)
 
         with trace.span("compress.write"):
-            reduced = make_las(
-                out, scales=las.scales, offsets=las.offsets, point_format=las.point_format,
-                version=las.version,
-            )
-            write_las(reduced, output_path)
+            # one native pass from the kept rows to the file's records; the
+            # same bytes as make_las + write_las, which write without it
+            n = write_kept_rows(output_path, rows, keep, origin, las.scales, las.offsets,
+                                las.point_format, las.version)
+            if n is not None:
+                trace.count("compress.write.native")
+            else:
+                out = rows[keep].astype(np.float64) + origin
+                reduced = make_las(
+                    out, scales=las.scales, offsets=las.offsets,
+                    point_format=las.point_format, version=las.version,
+                )
+                write_las(reduced, output_path)
+                n = len(out)
         rep.progress(100)
-        rep.log(f"downsampled to {len(out)} points -> {output_path}")
-    return len(out)
+        rep.log(f"downsampled to {n} points -> {output_path}")
+    return n
 
 
 def _read_las(path) -> tuple[LasData, np.ndarray]:

@@ -3,12 +3,15 @@
 Counterpart of ``pointcloudhookup_tpu/native/__init__.py``: the LAS xyz
 decoder of the tile streamer (``las_codec.cpp``: ``las_probe``,
 ``las_read_xyz``, ``las_read_xyz_range``) and the LAZ point codec that
-``io/laz.py`` reads and writes with (``laz_codec.cpp``).  Each compiles
-with g++ on first use into ``<repo>/build/native/``, keyed by a hash of the
-source, never next to the source.  Without a compiler the LAS functions
-return None (the caller reads with ``io/las.py``), ``prepare_tile`` returns
-None (the caller prepares with numpy), ``get_laz_lib`` returns None and
-reading or writing a .laz file raises.
+``io/laz.py`` reads and writes with (``laz_codec.cpp``); beside them, the
+port's own passes: the extract tile's preparation (``prepare.cpp``) and
+compress's record encoder (``las_encode.cpp``).  Each compiles with g++ on
+first use into ``<repo>/build/native/``, keyed by a hash of the source,
+never next to the source.  Without a compiler the LAS functions return None
+(the caller reads with ``io/las.py``), ``prepare_tile`` and
+``encode_las_records`` return None (the caller prepares or encodes with
+numpy), ``get_laz_lib`` returns None and reading or writing a .laz file
+raises.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ _LAS_FLAGS = _FLAGS + ("-ffp-contract=off",)
 _PREP_SRC = os.path.join(_DIR, "prepare.cpp")
 # sums in row order and p - origin rounded as numpy rounds them
 _PREP_FLAGS = _LAS_FLAGS + ("-pthread",)
+_ENCODE_SRC = os.path.join(_DIR, "las_encode.cpp")
 _lock = threading.Lock()
 _libs: dict = {}  # source -> its loaded library, or None once it failed
 
@@ -125,6 +129,15 @@ def _bind_prepare(lib) -> None:
                                 ctypes.c_longlong, ctypes.c_int]
 
 
+def _bind_encode(lib) -> None:
+    dp = ctypes.POINTER(ctypes.c_double)
+    lib.las_encode_rows.restype = ctypes.c_longlong
+    lib.las_encode_rows.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_ubyte), ctypes.c_longlong,
+        dp, dp, dp, ctypes.POINTER(ctypes.c_ubyte), ctypes.c_longlong, ctypes.c_int, dp,
+    ]
+
+
 def get_lib() -> Optional[ctypes.CDLL]:
     """The LAS xyz decoder, built on first use; None when no compiler is
     available (callers fall back to io/las.py)."""
@@ -141,6 +154,17 @@ def get_prepare_lib() -> Optional[ctypes.CDLL]:
     """The tile preparation passes, built on first use; None when no
     compiler is available (the caller prepares with numpy)."""
     return _load(_PREP_SRC, _PREP_FLAGS, _bind_prepare)
+
+
+def get_encode_lib() -> Optional[ctypes.CDLL]:
+    """Compress's LAS record encoder, built on first use; None when no
+    compiler is available (the caller encodes with numpy)."""
+    return _load(_ENCODE_SRC, _PREP_FLAGS, _bind_encode)
+
+
+def _threads(rows: int) -> int:
+    """Threads for an elementwise pass: one a million rows, at most 4."""
+    return max(1, min(4, os.cpu_count() or 1, rows >> 20))
 
 
 def prepare_tile(points: np.ndarray, cap: int):
@@ -165,11 +189,44 @@ def prepare_tile(points: np.ndarray, cap: int):
         return None
     origin = stats[:3] / n  # as numpy's mean divides its sum
     xyz = np.empty((cap, 3), np.float32)
-    # elementwise, so split over threads: one a million rows, at most 4
-    threads = max(1, min(4, os.cpu_count() or 1, cap >> 20))
     lib.prep_centre(points.ctypes.data_as(dp), n, origin.ctypes.data_as(dp),
-                    xyz.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), cap, threads)
+                    xyz.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), cap, _threads(cap))
     return origin, xyz, stats[6:] - stats[3:6]
+
+
+def encode_las_records(rows: np.ndarray, keep: np.ndarray, origin, scales, offsets,
+                       record_len: int):
+    """(records u8[n * record_len], mins f64[3], maxs f64[3]) of the kept
+    rows ``rows[keep]`` (C-ordered f32 [cap, 3] and bool [cap], as compress
+    fetches them) at ``origin``: the point records, and the header's bounds,
+    that ``make_las(rows[keep].astype(np.float64) + origin, scales, offsets,
+    fmt)`` and ``write_las`` give for a format of ``record_len`` bytes, bit
+    for bit.  Raises make_las's ValueError for a record beyond int32, and
+    for a NaN record (which no voxel row of integer records gives, and
+    make_las would write as whatever its cast gives).  None means: encode it
+    with numpy, without a compiler or for a scale or an offset that is not
+    finite (the header's bounds would not be numbers)."""
+    cap = len(rows)
+    if not (rows.dtype == np.float32 and rows.shape == (cap, 3) and rows.flags.c_contiguous
+            and keep.dtype == np.bool_ and keep.shape == (cap,) and keep.flags.c_contiguous):
+        raise ValueError("rows must be C-ordered f32 [cap, 3] and keep bool [cap]")
+    origin, scales, offsets = (np.ascontiguousarray(a, np.float64)
+                               for a in (origin, scales, offsets))
+    if not np.isfinite(np.concatenate([scales, offsets])).all():
+        return None
+    lib = get_encode_lib()
+    if lib is None:
+        return None
+    records = np.empty(int(np.count_nonzero(keep)) * record_len, np.uint8)
+    bounds = np.zeros(6, np.float64)
+    dp, bp = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_ubyte)
+    got = lib.las_encode_rows(
+        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), keep.ctypes.data_as(bp), cap,
+        origin.ctypes.data_as(dp), scales.ctypes.data_as(dp), offsets.ctypes.data_as(dp),
+        records.ctypes.data_as(bp), record_len, _threads(cap), bounds.ctypes.data_as(dp))
+    if got < 0:
+        raise ValueError("coordinates out of int32 range for given scale/offset")
+    return records, bounds[:3], bounds[3:]
 
 
 def las_probe(path: str):
